@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from ``fluidframework_tpu_torch/csrc`` (into
-``build/torch_kernels/``), holds it against its plain PyTorch version on
-the card at the main path's shapes, then drives the replica farm
+``build/torch_kernels/``), holds it exactly against its plain PyTorch
+version on the card at the main path's shapes and on six more cases that
+reach its other paths (S from 16 to 1024, overflow), then drives the
+replica farm
 (``GpuDocumentApplier`` at D=1024 docs, S=256 slots, K=32 ops per wave)
 through its entry points and checks every doc's text. Each phase prints
 one JSON line; any failure exits nonzero. Before the last line it prints
@@ -41,6 +43,8 @@ INT32_OPS_PER_S = 67e12 / 4
 OPS_PER_SLOT = 32
 
 BENCH_MIX = dict(remove_fraction=0.4, annotate_fraction=0.1, max_insert=8)
+ANNOTATE_MIX = dict(remove_fraction=0.15, annotate_fraction=0.5, max_insert=4)
+INSERT_MIX = dict(remove_fraction=0.0, annotate_fraction=0.1, max_insert=8)
 
 
 def emit(obj: dict) -> None:
@@ -58,20 +62,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def apply_bound(state, ops: torch.Tensor) -> tuple[float, str]:
@@ -119,6 +109,7 @@ def phase_kernel(name, seed, D, S, K, mix, expect_overflow):
     )
     from fluidframework_tpu_torch.ops.doc_state import DocState
     from fluidframework_tpu_torch.ops.opgen import generate_batch_ops
+    from fluidframework_tpu_torch.tools.apply_ab import cuda_ms
 
     rng = np.random.default_rng(seed)
     stream = generate_batch_ops(rng, D, 2 * K, **mix)
@@ -143,6 +134,7 @@ def phase_kernel(name, seed, D, S, K, mix, expect_overflow):
     # timed on the second wave, whose input state holds segments
     ms = cuda_ms(lambda: cuda_apply.apply_ops_batch(state_in, w2), reps=20)
     plain_ms = cuda_ms(lambda: apply_ops_batch_ref(state_in, w2), reps=3,
+                       queue=False,
                        warmup=1)
     bound_ms, bound_by = apply_bound(state_in, w2)
     # the other two stages of the applier's device step, on this wave
@@ -329,12 +321,26 @@ def main() -> None:
     cuda_apply.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in cuda_apply.BUILD_LOG.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]})
 
     rows = [
         phase_kernel("opgen_d1024_k32", 42, 1024, 256, 32, BENCH_MIX, False),
         phase_kernel("opgen_d8192_k64", 42, 8192, 256, 64, BENCH_MIX, False),
         phase_kernel("seed4_overflow", 4, 8, 16, 32, BENCH_MIX, True),
+        # S not a multiple of 32 or 256 (inert lanes past S)
+        phase_kernel("opgen_s200", 43, 256, 200, 32, BENCH_MIX, False),
+        # the multi-warp path, at tests/test_replay.py's geometry and at
+        # the largest S
+        phase_kernel("opgen_s640", 44, 64, 640, 32, BENCH_MIX, False),
+        phase_kernel("opgen_s1024_k64", 45, 32, 1024, 64, BENCH_MIX, False),
+        # many prop-row copies on splits and prop-table writes
+        phase_kernel("annotate_d1024_k32", 46, 1024, 256, 32, ANNOTATE_MIX,
+                     False),
+        # inserts only: counts cross the first warp's 256 slots and the
+        # docs overflow
+        phase_kernel("insert_overflow_s288", 47, 8, 288, 256, INSERT_MIX,
+                     True),
     ]
     launches = phase_main_path(power)
     phase_escalation()

@@ -10,6 +10,13 @@ nothing falls back. The kernel is built at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/torch_kernels/`` (keyed by a hash of the sources), and loaded with
 ``ctypes``. ``LAUNCHES`` counts the kernel's launches.
+
+Geometry (``launch_geometry``): up to 256 slots a doc, one warp per doc
+with 1, 2, 4 or 8 consecutive slots a lane and ``DOCS_PER_CTA`` docs a
+CTA; from 257 to 1024 slots, one CTA of ceil(S/256) warps per doc, 8
+slots a lane. Each doc's prop rows, text_starts and flags (one row per
+slot, inert slots past S included) and each warp's staged op rows sit in
+shared memory.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -33,7 +40,12 @@ LAUNCHES = 0
 
 #: the prop-table capacity P the kernel is compiled for
 KERNEL_PROPS = DEFAULT_MAX_PROPS
-MAX_SLOTS = 1024  # one thread per slot, one block per doc
+MAX_SLOTS = 1024  # at most 4 warps of 8 slots a lane per doc
+#: docs a CTA holds when a doc is one warp (S <= 256)
+DOCS_PER_CTA = 4
+MAX_SHARED_BYTES = 232_448  # a block's dynamic shared memory on sm_90
+MAX_THREADS = 128  # the kernel's __launch_bounds__
+OP_CHUNK = 16  # op rows a warp stages into shared memory at once
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("apply.cu",)
@@ -42,7 +54,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: Optional[ctypes.CDLL] = None
-#: what the last build printed (ptxas registers / spills)
+#: what the build of the loaded sources printed (ptxas registers / spills)
 BUILD_LOG = ""
 
 
@@ -58,25 +70,32 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build csrc/apply.cu")
 
 
-def build() -> Path:
+def build(sources: Optional[Sequence[Path]] = None,
+          stem: str = "libff_apply") -> Path:
     """Compile the kernel library from the sources in this checkout (a
-    no-op when a library for these exact sources is already built)."""
+    no-op when a library for these exact sources is already built).
+    ``sources`` and ``stem`` build another source of the kernel instead
+    (an A/B baseline)."""
     global BUILD_LOG
+    paths = ([CSRC / n for n in SOURCES] if sources is None
+             else [Path(p) for p in sources])
     digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    for path in paths:
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"libff_apply_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / n) for n in SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in paths)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_LOG = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    log.write_text(BUILD_LOG)
     os.replace(tmp, lib)
     return lib
 
@@ -86,7 +105,7 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.ff_apply_ops_batch
-        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ff_error_string.argtypes = [ctypes.c_int]
@@ -95,14 +114,45 @@ def load_library() -> ctypes.CDLL:
     return _LIB
 
 
+def launch_geometry(S: int, P: int = KERNEL_PROPS) -> tuple[int, int, int,
+                                                             int]:
+    """``(slots_per_lane, warps_per_doc, docs_per_cta, smem_bytes)`` for
+    docs of ``S`` slots and ``P`` prop entries a slot. ``csrc/apply.cu``
+    takes these as arguments and checks them (``smem_needed`` there
+    mirrors the byte count). Raises past the card's shared memory or the
+    kernel's thread limit."""
+    if not 0 < S <= MAX_SLOTS:
+        raise ValueError(f"max_slots {S} outside 1..{MAX_SLOTS}")
+    if S <= 256:
+        spt = next(n for n in (1, 2, 4, 8) if 32 * n >= S)
+        warps, docs = 1, DOCS_PER_CTA
+    else:
+        spt, warps, docs = 8, -(-S // 256), 1
+    # per doc, for each of its 32 * spt * warps slots (inert ones past S
+    # included): a prop row of 2P entries, a text_start and flags (padded
+    # to 16 bytes); per warp: its staged op rows
+    slots = 32 * spt * warps
+    ints = (docs * (slots * 2 * P + -(-2 * slots // 4) * 4)
+            + docs * warps * OP_CHUNK * OP_FIELDS)
+    if warps > 1:  # cross-warp combine rows, and 4 rows a shift hands over
+        ints += warps * 32 + 4
+    smem = 4 * ints
+    threads = 32 * warps * docs
+    if threads > MAX_THREADS:
+        raise ValueError(f"S={S}: {threads} threads a CTA, over "
+                         f"{MAX_THREADS}")
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"S={S}, P={P}: {smem} bytes of shared memory a "
+                         f"CTA, over {MAX_SHARED_BYTES}")
+    return spt, warps, docs, smem
+
+
 def _check(state: DocState, ops: torch.Tensor) -> None:
     D, S, P = state.num_docs, state.max_slots, state.max_props
     if ops.dtype != torch.int32 or ops.ndim != 3 or ops.shape[0] != D \
             or ops.shape[2] != OP_FIELDS:
         raise ValueError(f"ops must be int32 [{D}, K, {OP_FIELDS}], got "
                          f"{ops.dtype} {tuple(ops.shape)}")
-    if not 0 < S <= MAX_SLOTS:
-        raise ValueError(f"max_slots {S} outside 1..{MAX_SLOTS}")
     if P != KERNEL_PROPS:
         raise ValueError(f"max_props {P}: the kernel is built for "
                          f"{KERNEL_PROPS}")
@@ -132,12 +182,17 @@ def apply_ops_batch(state: DocState, ops: torch.Tensor) -> DocState:
     return launch(state, ops)
 
 
-def launch(state: DocState, ops: torch.Tensor) -> DocState:
-    """Launch the kernel on CUDA tensors; raises on anything else."""
+def launch(state: DocState, ops: torch.Tensor,
+           geometry: Optional[tuple[int, int, int, int]] = None) -> DocState:
+    """Launch the kernel on CUDA tensors; raises on anything else.
+    ``geometry`` replaces ``launch_geometry``'s choice (timing variants
+    only; the kernel refuses one that does not fit)."""
     global LAUNCHES
+    _check(state, ops)
     if ops.device.type != "cuda":
         raise ValueError(f"apply kernel: no kernel for {ops.device}")
-    _check(state, ops)
+    if geometry is None:
+        geometry = launch_geometry(state.max_slots, state.max_props)
     lib = load_library()
     out = DocState(**{f: torch.empty_like(getattr(state, f))
                       for f in FIELDS})
@@ -149,7 +204,7 @@ def launch(state: DocState, ops: torch.Tensor) -> DocState:
             ops.data_ptr(),
             *(getattr(state, f).data_ptr() for f in FIELDS),
             *(getattr(out, f).data_ptr() for f in FIELDS),
-            D, S, P, K, stream)
+            D, S, P, K, *geometry, stream)
     if err:
         raise RuntimeError(
             f"apply kernel launch failed: {lib.ff_error_string(err).decode()}")
