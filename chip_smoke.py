@@ -8,8 +8,12 @@ version on the card at the main path's shapes and on six more cases that
 reach its other paths (S from 16 to 1024, overflow), then drives the
 replica farm
 (``GpuDocumentApplier`` at D=1024 docs, S=256 slots, K=32 ops per wave)
-through its entry points and checks every doc's text. Each phase prints
-one JSON line; any failure exits nonzero. Before the last line it prints
+through its entry points and checks every doc's text, and finally drives
+the service path: ``service/load_gen.run_inproc`` (clients → LocalServer →
+deli → scriptorium, scribe, broadcaster) at 1024 docs × 2 clients × 48 ops
+with the async, overlap-staged applier riding the broadcast, held against
+a CPU applier, against itself with overlap off, and on the dict lane.
+Each phase prints one JSON line; any failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
 limit as ``nvidia-smi`` reports them; the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -306,6 +310,135 @@ def phase_escalation():
     emit({"phase": "escalation", "host_escalations": 1, "ok": True})
 
 
+SERVICE_RUN = dict(n_docs=1024, clients_per_doc=2, ops_per_client=48,
+                   batch_size=24, flush_every=4096, seed=3)
+SERVICE_GEO = dict(max_docs=1024, max_slots=256, ops_per_dispatch=32)
+
+
+def _timed(fn, name: str, into: dict):
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+    return timed
+
+
+def service_run(device: str, array_lane: bool = True, run=None, **applier):
+    """One ``run_inproc`` with a fresh applier riding the broadcast.
+    Returns (load stats, applier, every doc's text); fails the phase on an
+    escalation, an unacked op or an op the applier did not apply."""
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+    )
+    from fluidframework_tpu_torch.service.load_gen import run_inproc
+
+    run = dict(SERVICE_RUN, **(run or {}))
+    app = GpuDocumentApplier(device=device, **SERVICE_GEO, **applier)
+    # host seconds the caller's thread spends inside the applier during
+    # the run: its ingest entry points, and finalize (the final drain)
+    seconds = {"ingest_batch": 0.0, "ingest_array_batch": 0.0}
+    for method in ("ingest_batch", "ingest_array_batch", "finalize"):
+        setattr(app, method, _timed(getattr(app, method), method, seconds))
+    try:
+        stats = run_inproc(applier=app, array_lane=array_lane, **run)
+        app.caller_seconds = dict(seconds)
+        texts = [app.get_text("bench", f"doc{d}")
+                 for d in range(run["n_docs"])]
+    finally:
+        if applier.get("async_dispatch"):
+            app.close()  # re-raises a worker exception: the phase fails
+    what = f"service ({device}, array_lane={array_lane}, {applier})"
+    if stats.applier_escalations:
+        fail(f"{what}: {stats.applier_escalations} escalations")
+    if stats.ops_acked != stats.ops_submitted:
+        fail(f"{what}: {stats.ops_acked} of {stats.ops_submitted} acked")
+    if stats.applier_ops != stats.ops_submitted:
+        fail(f"{what}: the applier applied {stats.applier_ops} of "
+             f"{stats.ops_submitted} ops")
+    return stats, app, texts
+
+
+def phase_service(name: str, power: str):
+    """The service path at bench_service's geometry: the async applier
+    (min_wave_ops=32768) on the array lane, timed, with its stage/execute
+    split; then the same seed through a synchronous CPU applier, a
+    synchronous card applier, the card with overlap off, and the card on
+    the dict lane — every doc's text must agree with the CPU run. Returns B1's launches
+    in the timed run."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.service.load_gen import run_inproc
+
+    card = dict(async_dispatch=True, min_wave_ops=32768)
+    # warm-up: CUDA context, the kernel library, pinned buffers
+    service_run("cuda", run=dict(n_docs=16), **card)
+    # the ordering pipeline alone, no applier: the host's share
+    host_only = run_inproc(array_lane=True, **SERVICE_RUN)
+
+    torch.cuda.synchronize()
+    cuda_apply.LAUNCHES = 0
+    stats, app, texts = service_run("cuda", **card)
+    launches = cuda_apply.LAUNCHES
+    if launches != app.dispatches or launches == 0:
+        fail(f"service: {launches} kernel launches for {app.dispatches} "
+             "dispatches")
+    if app.waves_staged != app.dispatches:
+        fail(f"service: {app.waves_staged} waves staged, "
+             f"{app.dispatches} dispatched")
+
+    # the CPU reference stages everything and flushes once at the end:
+    # the flush cadence does not change what the applier computes
+    _, cpu, cpu_texts = service_run(
+        "cpu", run=dict(flush_every=10**9))
+    checks = {"card": texts}
+    sync_stats, sync_app, checks["sync_card"] = service_run("cuda")
+    checks["overlap_off"] = service_run("cuda", overlap=False, **card)[2]
+    dict_stats, _, checks["dict_lane"] = service_run(
+        "cuda", array_lane=False, **card)
+    for what, got in checks.items():
+        bad = [d for d in range(len(cpu_texts)) if got[d] != cpu_texts[d]]
+        if bad:
+            fail(f"service: {what}: {len(bad)} docs differ from the CPU "
+                 f"applier (first doc{bad[0]})")
+    if not any(texts):
+        fail("service: every doc is empty")
+
+    row = {"phase": "service", "docs": SERVICE_RUN["n_docs"],
+           "clients_per_doc": SERVICE_RUN["clients_per_doc"],
+           "ops_per_client": SERVICE_RUN["ops_per_client"],
+           "boxcar": SERVICE_RUN["batch_size"], "ops": stats.ops_submitted,
+           "seconds": stats.seconds, "ops_per_sec": stats.ops_per_sec,
+           "p50_ack_ms": stats.latency_ms(0.50),
+           "p99_ack_ms": stats.latency_ms(0.99),
+           "pipeline_only_seconds": host_only.seconds,
+           "pipeline_only_ops_per_sec": host_only.ops_per_sec,
+           "ingest_seconds": app.caller_seconds["ingest_array_batch"],
+           "finalize_seconds": app.caller_seconds["finalize"],
+           "stage_seconds": app.stage_seconds,
+           "stage_bytes": app.stage_bytes,
+           "exec_seconds": app.exec_seconds,
+           "exec_device_seconds": app.exec_device_seconds,
+           # a lower bound: a step's event span also counts the host's
+           # gaps between its eager launches (tools/profile_service.py
+           # measures the card's busy time itself)
+           "card_idle_share_min": 1 - app.exec_device_seconds / stats.seconds,
+           "stage_overlap_ratio": app.stage_overlap_ratio(),
+           "dispatches": app.dispatches, "launches": launches,
+           "host_escalations": 0,
+           "sync_card_ops_per_sec": sync_stats.ops_per_sec,
+           "sync_card_dispatches": sync_app.dispatches,
+           "sync_card_stage_seconds": sync_app.stage_seconds,
+           "sync_card_exec_seconds": sync_app.exec_seconds,
+           "dict_lane_ops_per_sec": dict_stats.ops_per_sec,
+           "dict_lane_p99_ack_ms": dict_stats.latency_ms(0.99),
+           "cpu_dispatches": cpu.dispatches,
+           "texts_match_cpu": list(checks),
+           "name": name, "card": power}
+    emit(row)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -344,6 +477,7 @@ def main() -> None:
     ]
     launches = phase_main_path(power)
     phase_escalation()
+    launches += phase_service(name, power)
 
     main_row = rows[0]  # the main path's shape: D=1024, S=256, K=32
     print(json.dumps({"kernels": [{

@@ -9,7 +9,8 @@ that lie on the CPU. For CUDA tensors it launches the kernel or raises;
 nothing falls back. The kernel is built at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/torch_kernels/`` (keyed by a hash of the sources), and loaded with
-``ctypes``. ``LAUNCHES`` counts the kernel's launches.
+``ctypes``. ``LAUNCHES`` counts the kernel's launches (under a lock: an
+async applier launches from its worker thread).
 
 Geometry (``launch_geometry``): up to 256 slots a doc, one warp per doc
 with 1, 2, 4 or 8 consecutive slots a lane and ``DOCS_PER_CTA`` docs a
@@ -26,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -37,6 +39,7 @@ from .doc_state import DEFAULT_MAX_PROPS, FIELDS, DocState
 #: kernel launches since import (compare launches are counted too; callers
 #: that need a path's own count reset it to 0 first)
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 #: the prop-table capacity P the kernel is compiled for
 KERNEL_PROPS = DEFAULT_MAX_PROPS
@@ -208,5 +211,6 @@ def launch(state: DocState, ops: torch.Tensor,
     if err:
         raise RuntimeError(
             f"apply kernel launch failed: {lib.ff_error_string(err).decode()}")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
     return out

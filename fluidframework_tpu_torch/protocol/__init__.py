@@ -3,13 +3,23 @@
 from .messages import (
     UNASSIGNED_SEQ,
     UNIVERSAL_SEQ,
+    DocumentMessage,
     MessageType,
+    Nack,
+    NackErrorType,
     SequencedDocumentMessage,
+    Signal,
+    TraceHop,
 )
 
 __all__ = [
     "UNASSIGNED_SEQ",
     "UNIVERSAL_SEQ",
+    "DocumentMessage",
     "MessageType",
+    "Nack",
+    "NackErrorType",
     "SequencedDocumentMessage",
+    "Signal",
+    "TraceHop",
 ]

@@ -1,5 +1,8 @@
 """Service layer of the port (JAX counterpart: ``fluidframework_tpu/service``).
 
-So far only the replica farm's dense lane: ``gpu_applier`` and the array
-boxcars it ingests (``array_batch``).
+The in-process ordering pipeline (``local_server.LocalServer`` → deli →
+scriptorium, scribe, broadcaster over ``local_log.LocalLog``), the load
+generator that drives it (``load_gen.run_inproc``), and the replica farm
+that rides its broadcast (``gpu_applier.GpuDocumentApplier``) with the
+array boxcars it ingests (``array_batch``).
 """

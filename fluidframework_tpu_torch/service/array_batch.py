@@ -2,9 +2,9 @@
 
 JAX counterpart: ``fluidframework_tpu/service/array_batch.py``
 (``ArrayBoxcar``, ``SequencedArrayBatch``). This is a copy of those two
-classes. The transport caches (``wire_cols``, ``hops``), the conversion to
-a dict boxcar (``to_raw_boxcar``, which needs deli) and the durable-log
-codec wait for the port of the host layers.
+classes with ``to_raw_boxcar``, the bridge into deli's ``RawBoxcar``. The
+binwire column cache (``wire_cols``) waits for the network front end, and
+the durable-log codec for the checkpoint slice (ROADMAP A4).
 
 A client's submitted boxcar of merge-tree text ops rides the pipeline as
 structure-of-arrays — int32 fields plus one concatenated text blob — so
@@ -25,7 +25,11 @@ from typing import Optional
 
 import numpy as np
 
-from ..protocol.messages import MessageType, SequencedDocumentMessage
+from ..protocol.messages import (
+    DocumentMessage,
+    MessageType,
+    SequencedDocumentMessage,
+)
 
 KIND_INSERT = 0
 KIND_REMOVE = 1
@@ -52,6 +56,10 @@ class ArrayBoxcar:
     text_off: np.ndarray  # int32 [n+1] offsets into text (non-inserts 0-len)
     props: Optional[list] = None  # per-op props dict or None (annotates)
     timestamp: float = 0.0
+    # accumulated trace hops [(hop_id, ts), ...] (sampled boxcars only;
+    # None when tracing is unarmed). Each tier APPENDS its hop in place.
+    # Transport-only: deliberately outside any durable codec.
+    hops: Optional[list] = field(default=None, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -72,6 +80,23 @@ class ArrayBoxcar:
         return {"kind": "chanop", "address": self.ds_id,
                 "contents": {"address": self.channel_id,
                              "contents": self.wire_op(i)}}
+
+    def to_raw_boxcar(self):
+        """The exactly-equivalent dict boxcar (deli scalar fallback)."""
+        from .deli import RawBoxcar
+
+        ops = [
+            DocumentMessage(
+                client_sequence_number=int(self.cseq[i]),
+                reference_sequence_number=int(self.rseq[i]),
+                type=MessageType.OPERATION,
+                contents=self.contents(i))
+            for i in range(self.n)
+        ]
+        return RawBoxcar(tenant_id=self.tenant_id,
+                         document_id=self.document_id,
+                         client_id=self.client_id, ops=ops,
+                         timestamp=self.timestamp)
 
 
 @dataclass

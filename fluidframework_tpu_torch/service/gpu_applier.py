@@ -1,17 +1,45 @@
 """GpuDocumentApplier: the batched server-side merge-tree replica farm.
 
 JAX counterpart: ``fluidframework_tpu/service/tpu_applier.py::
-TpuDocumentApplier``, its dense lane. The service keeps thousands of
-documents as ONE device-resident structure-of-arrays batch
-(``ops/doc_state.DocState`` with a leading doc dimension) and applies every
-sequenced merge-tree op to it in waves of up to K ops per doc.
+TpuDocumentApplier`` without its mesh lane and checkpoints (ROADMAP A4).
+The service keeps thousands of documents as ONE device-resident
+structure-of-arrays batch (``ops/doc_state.DocState`` with a leading doc
+dimension) and applies every sequenced merge-tree op to it in waves of up
+to K ops per doc.
 
-Each wave is staged on the host (``_stage_wave``: the rows of every doc
-packed by ``ops/apply.pack_wave_rows`` into an int16 [D, K, 12] delta wave
-plus int32 [D, 2] bases) and copied to the card, where one step runs
-``unpack_wave16`` → ``ops/cuda_apply.apply_ops_batch`` (the hand-written
-CUDA kernel) → ``compact_batch`` at ``wave_min_seq``. A wave whose deltas
-escape int16 ships at full int32 width instead and skips the unpack.
+A dispatch has two halves. The host half (``_stage_wave``) packs the
+wave's rows (``ops/apply.pack_wave_rows``) into an int16 [D, K, 12] delta
+wave plus int32 [D, 2] bases, scatters them into one of two rotating sets
+of pinned host buffers and copies them to the card with ``non_blocking``
+on the applier's own CUDA stream. The device half (``_execute_wave``)
+enqueues ``unpack_wave16`` → ``ops/cuda_apply.apply_ops_batch`` (the
+hand-written CUDA kernel) → ``compact_batch`` at ``wave_min_seq`` on the
+same stream and records a CUDA event after it. A wave whose deltas escape
+int16 ships at full int32 width instead and skips the unpack. With
+``overlap`` on (the default) nothing waits for the card, so the host
+stages wave N+1 while wave N runs; with it off every step is fenced.
+
+Fences, all on CUDA events recorded on the applier's stream:
+- a staging set is handed out again only after the event of the step
+  that consumed it has completed (``_rotate_stage_buffers``), and that
+  wait comes before the set is zeroed: the pinned memory may still be
+  the source of an in-flight copy;
+- ``_drain_device`` waits for the last step's event (escalation, the
+  width flip of a forced wide wave, ``finalize``, ``close``);
+- every read of device state (the overflow poll, ``get_text``,
+  ``get_tree``, ``get_properties_at``, ``slot_count``) runs with the
+  applier's stream current on the reading thread, so its device→host copy
+  is ordered after every step enqueued there. State tensors are made and
+  freed on that one stream, so the caching allocator never hands a block
+  to another stream while a step still reads it.
+
+With ``async_dispatch`` a worker thread owns staging, execution and the
+periodic overflow poll (it defers escalation to the caller's next sync
+point); the caller's thread only appends staged chunks under a lock.
+``min_wave_ops`` holds the worker back until that many ops are staged
+(unless draining). An exception on the worker is stored and re-raised by
+the next ``flush``, ``finalize`` or ``close``; a dead worker never leaves
+``finalize`` waiting.
 
 Semantics guardrails (as in the JAX package):
 - Ops ingest ONLY from the sequenced stream, so the server-side invariants
@@ -25,24 +53,23 @@ Semantics guardrails (as in the JAX package):
   on the host from then on.
 - Every staged op carries the msn deli stamped on it, so zamboni runs
   after every wave at the exact collaboration-window floor.
-
-Not ported yet (see ROADMAP.md): the async worker thread, overlapping
-staging with execution on a CUDA stream with pinned double buffers, the
-mesh lane, checkpoints, the chaos seams and the metrics registry. Here the
-host→device copy of a wave is synchronous.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from collections import deque
 from dataclasses import replace
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from ..config import ApplierConfig
+from ..config import Config
 from ..device import resolve_device
 from ..mergetree.client import MergeTreeClient
+from ..obs import get_registry
 from ..ops import cuda_apply
 from ..ops.apply import (
     F_CLIENT,
@@ -78,45 +105,73 @@ from ..ops.doc_state import (
     decode_state,
 )
 from ..parallel.placement import DocPlacement
-from ..protocol.messages import MessageType, SequencedDocumentMessage
+from ..protocol.messages import MessageType
+from ..utils.affinity import blocking
 
 MARKER_GLYPH = "￼"  # arena placeholder byte for markers (flags classify)
 
 INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
-
-def _array_message(batch, i: int) -> SequencedDocumentMessage:
-    """Op ``i`` of a sequenced array batch as a message, read from the
-    batch's arrays alone (the client seq plays no part in the merge)."""
-    box = batch.boxcar
-    return SequencedDocumentMessage(
-        client_id=box.client_id,
-        sequence_number=batch.base_seq + i,
-        minimum_sequence_number=int(batch.msns[i]),
-        client_sequence_number=0,
-        reference_sequence_number=int(box.rseq[i]),
-        type=MessageType.OPERATION,
-        contents=None,
-    )
+_TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32}
 
 
-def _array_wire_op(box, i: int) -> dict:
-    """Op ``i`` of an array boxcar as a merge-tree wire op."""
-    k = int(box.kind[i])
-    if k == 0:
-        return {"type": 0, "pos": int(box.a[i]),
-                "text": box.text[int(box.text_off[i]):
-                                 int(box.text_off[i + 1])]}
-    if k == 1:
-        return {"type": 1, "start": int(box.a[i]), "end": int(box.b[i])}
-    return {"type": 2, "start": int(box.a[i]), "end": int(box.b[i]),
-            "props": dict(box.props[i]) if box.props else {}}
+def channel_stream(server, tenant_id: str, document_id: str,
+                   ds_id: str, channel_id: str, from_seq: int = 0):
+    """Extract one channel's merge-tree messages from the document's
+    sequenced op log (scriptorium) — the applier's replay source and the
+    scribe-replay entry point.
+
+    Truncated logs raise (scriptorium.LogTruncatedError): with log
+    retention active, a from-zero replay would silently rebuild WRONG
+    state once ops behind an acked summary have been dropped. Reads go
+    straight through a stateless ScriptoriumLambda over the db so
+    inspecting a doc never lazily constructs its whole pipeline."""
+    from .scriptorium import ScriptoriumLambda
+
+    for m in ScriptoriumLambda(server.db).get_deltas(
+            tenant_id, document_id, from_seq, 10**9):
+        if m.type != MessageType.OPERATION:
+            continue
+        env = m.contents
+        if not isinstance(env, dict) or env.get("kind") != "chanop":
+            continue
+        if env["address"] != ds_id:
+            continue
+        inner = env["contents"]
+        if inner.get("address") != channel_id or "attach" in inner:
+            continue
+        yield replace(m, contents=inner["contents"])
+
+
+class _StagedWave:
+    """The output of the stage half of a dispatch: device-resident input
+    tensors plus what the execute half needs to run and account for the
+    wave. Holding one of these means the wave's ops have LEFT the staged
+    dict but have not yet been issued to the device."""
+
+    __slots__ = ("wide", "arrays", "n", "nbytes", "flip")
+
+    def __init__(self, wide: bool, arrays: tuple, n: int, nbytes: int,
+                 flip: int):
+        self.wide = wide        # int32 escape lane (range / force_wide)
+        self.arrays = arrays    # device tensors, step-call order
+        self.n = n              # op rows in the wave
+        self.nbytes = nbytes    # host bytes staged
+        self.flip = flip        # which staging-buffer set holds the wave
 
 
 class GpuDocumentApplier:
     """Maintains [D, S] doc states on one device, fed by sequenced op
     streams. ``device`` defaults to ``cuda`` and raises without a card;
     ``device="cpu"`` runs the plain PyTorch versions."""
+
+    #: chaos seam: forced device escalations — the int32 wide dispatch
+    #: path and the overflow-to-host flip — so the rare lanes run under a
+    #: soak, not only when a doc organically exceeds int16 / device
+    #: capacity. A callable ``(seam, **info) -> directive``; None =
+    #: disarmed, one branch.
+    fault_plane = None
 
     def __init__(
         self,
@@ -125,25 +180,35 @@ class GpuDocumentApplier:
         ops_per_dispatch: Optional[int] = None,
         overflow_check_every: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
+        async_dispatch: bool = False,
+        min_wave_ops: Optional[int] = None,
+        overlap: Optional[bool] = None,
     ):
-        cfg = ApplierConfig.from_env()
+        cfg = Config.from_env()
         self.device = resolve_device(device)
-        self.max_docs = max_docs if max_docs is not None else cfg.max_docs
-        self.max_slots = max_slots if max_slots is not None else cfg.max_slots
+        self.max_docs = (max_docs if max_docs is not None
+                         else cfg.applier_max_docs)
+        self.max_slots = (max_slots if max_slots is not None
+                          else cfg.applier_max_slots)
         self.K = (ops_per_dispatch if ops_per_dispatch is not None
-                  else cfg.ops_per_dispatch)
+                  else cfg.applier_ops_per_dispatch)
         # reading the overflow flags is a device→host sync, so flush()
         # polls them only every N dispatches. Deferral is safe: the flag
         # is sticky and escalation replays the doc from its log; reads and
         # finalize() always check first.
         self.overflow_check_every = (
             overflow_check_every if overflow_check_every is not None
-            else cfg.overflow_check_every)
+            else cfg.applier_overflow_check_every)
         self._dispatches_since_check = 0
         self.placement = DocPlacement(n_shards=1,
                                       slots_per_shard=self.max_docs)
-        self.state = DocState.empty(self.max_docs, self.max_slots,
-                                    device=self.device)
+        # the applier's own stream: every copy, step and state read of
+        # this farm is ordered on it (None on the CPU)
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
+        with torch.cuda.stream(self._stream):
+            self.state = DocState.empty(self.max_docs, self.max_slots,
+                                        device=self.device)
         self.arenas = [TextArena() for _ in range(self.max_docs)]
         self.prop_table = PropTable()  # shared across docs; ids are dense
         # per-doc dense client interning (collision-free by construction)
@@ -154,15 +219,76 @@ class GpuDocumentApplier:
         self._staged_ops = 0
         self._host_docs: dict[int, MergeTreeClient] = {}  # escalated docs
         self._doc_keys: dict[int, tuple[str, str]] = {}
-        self._applied_seq: dict[int, int] = {}
-        self._first_seq: dict[int, int] = {}
         # the host replay source: fn(tenant, doc) -> iterable of
         # CHANNEL-LEVEL sequenced merge-tree messages
         self._replay_log = None
+        # coverage tracking for summary writers: _applied_seq = highest
+        # ingested seq per slot; _first_seq = first ingested seq per slot;
+        # _anchored = slots whose state provably covers the doc's WHOLE
+        # history (a caller's coverage proof). _restore_applied and
+        # _post_restore_first carry a checkpoint restore's window, which
+        # the summarizer must see closed (restore_gap); checkpoints are
+        # not ported yet, so only mark_anchored touches them here.
+        self._applied_seq: dict[int, int] = {}
+        self._first_seq: dict[int, int] = {}
+        self._anchored: set[int] = set()
+        self._restore_applied: dict[int, int] = {}
+        self._post_restore_first: dict[int, int] = {}
+        # ---- overlap-staged dispatch (stage/execute split) ----
+        # Two rotating sets of pinned host staging buffers: wave N+1
+        # scatters into one set while the other's copy (wave N) may still
+        # be in flight — _rotate_stage_buffers fences a set's last step
+        # before handing it out again.
+        self._overlap = overlap if overlap is not None else cfg.applier_overlap
+        self._stage_pool: tuple = ({}, {})
+        self._stage_inflight: list = [None, None]
+        self._stage_flip = 0
+        # the last step's completion event: query() is the non-blocking
+        # "device still executing" probe of the overlap accounting;
+        # _drain_device() waits on it at seams
+        self._exec_marker: Optional[torch.cuda.Event] = None
+        # (start, end) timing events of steps not yet folded into
+        # exec_device_seconds
+        self._timed_steps: deque = deque()
+        self.stage_seconds = 0.0
+        self.stage_overlap_seconds = 0.0
+        self.stage_bytes = 0
+        self.exec_seconds = 0.0
+        # card time from each step's first enqueued launch to its end
+        # (host gaps between the step's eager launches included)
+        self.exec_device_seconds = 0.0
+        self.waves_staged = 0
+        self.last_wave_hops: Optional[tuple[float, float]] = None
+        self._last_stage_wall: Optional[float] = None
+        self._registry = None
         self.dispatches = 0
         self.wide_dispatches = 0
         self.ops_applied = 0
         self.host_escalations = 0
+        # async mode: a worker thread owns wave building, the copy and
+        # dispatch, so the ordering pipeline never waits on the card. The
+        # worker is the ONLY state mutator; the caller's thread stages
+        # chunks under the lock and escalates at sync points (the worker
+        # defers overflow escalation to `_overflow_slots`).
+        self._async = async_dispatch
+        # below this many staged ops the worker holds off dispatching
+        # (unless draining): a step costs about the same whether waves are
+        # full or nearly empty
+        self._min_wave = (min_wave_ops if min_wave_ops is not None
+                          else cfg.applier_min_wave_ops)
+        self._draining = False
+        self._lock = threading.Lock()
+        self._worker: Optional[threading.Thread] = None
+        self._worker_error: Optional[BaseException] = None
+        if async_dispatch:
+            self._wake = threading.Event()
+            self._idle = threading.Event()
+            self._idle.set()
+            self._stop = False
+            self._overflow_slots: set[int] = set()
+            self._worker = threading.Thread(
+                target=self._worker_loop, daemon=True, name="gpu-applier")
+            self._worker.start()
 
     # ------------------------------------------------------------- ingest
 
@@ -173,16 +299,6 @@ class GpuDocumentApplier:
         self._doc_keys.setdefault(row, (tenant_id, document_id))
         return row
 
-    def _intern_client(self, slot: int, client_id: Optional[str]) -> int:
-        if client_id is None:
-            return SYSTEM_CLIENT
-        table = self._client_ids.setdefault(slot, {})
-        cid = table.get(client_id)
-        if cid is None:
-            cid = len(table)
-            table[client_id] = cid
-        return cid
-
     def ingest(self, tenant_id: str, document_id: str, msg,
                wire_op: dict) -> None:
         """Stage one sequenced merge-tree wire op for batched apply."""
@@ -190,26 +306,71 @@ class GpuDocumentApplier:
 
     def ingest_batch(self, tenant_id: str, document_id: str,
                      pairs: list) -> None:
-        """Stage a batch of (sequenced message, wire op) pairs of one doc,
-        in seq order. Staging is tuple appends; one array per batch."""
+        """Stage a broadcast batch of (sequenced message, wire op) pairs of
+        one doc, in seq order. Staging is tuple appends; one array per
+        batch."""
         slot = self.slot_of(tenant_id, document_id)
         if pairs:
+            # sequenced stream ⇒ pairs arrive in seq order; the last is max
             self._applied_seq[slot] = max(
                 self._applied_seq.get(slot, 0),
                 pairs[-1][0].sequence_number)
             self._first_seq.setdefault(slot, pairs[0][0].sequence_number)
+            if slot in self._restore_applied:
+                self._post_restore_first.setdefault(
+                    slot, pairs[0][0].sequence_number)
+        if self.fault_plane is not None and slot not in self._host_docs:
+            if self.fault_plane("applier.ingest", slot=slot) \
+                    == "escalate_host":
+                # forced overflow-to-host flip: same path a doc takes
+                # when it outgrows device capacity — replays the
+                # authoritative log into a host replica, then applies
+                # this batch host-side below
+                self._escalate(slot, None, None)
         if slot in self._host_docs:
             for msg, wire_op in pairs:
                 self._apply_host(slot, msg, wire_op)
             return
         staged = []
+        table = self._client_ids.setdefault(slot, {})
         arena = self.arenas[slot]
+        # hot-loop locals: plain inserts/removes (the bulk of real
+        # traffic) stage inline without the _stage_op dispatch
+        append = staged.append
+        arena_append = arena.append
+        table_get = table.get
         for i, (msg, wire_op) in enumerate(pairs):
-            ok = type(wire_op) is dict and self._stage_op(
-                staged, arena, wire_op, msg.sequence_number,
-                msg.reference_sequence_number,
-                self._intern_client(slot, msg.client_id),
-                msg.minimum_sequence_number)
+            if type(wire_op) is not dict:
+                ok = False
+            else:
+                cid = msg.client_id
+                if cid is None:
+                    client = SYSTEM_CLIENT
+                else:
+                    client = table_get(cid)
+                    if client is None:
+                        client = len(table)
+                        table[cid] = client
+                t = wire_op.get("type")
+                if t == 0 and "marker" not in wire_op \
+                        and not wire_op.get("props"):
+                    text = wire_op.get("text") or ""
+                    append((OP_INSERT, wire_op["pos"], 0,
+                            msg.sequence_number,
+                            msg.reference_sequence_number, client,
+                            len(text), arena_append(text),
+                            msg.minimum_sequence_number, 0, 0, 0))
+                    continue
+                if t == 1:
+                    append((OP_REMOVE, wire_op["start"], wire_op["end"],
+                            msg.sequence_number,
+                            msg.reference_sequence_number, client, 0, 0,
+                            msg.minimum_sequence_number, 0, 0, 0))
+                    continue
+                ok = self._stage_op(
+                    staged, arena, wire_op, msg.sequence_number,
+                    msg.reference_sequence_number, client,
+                    msg.minimum_sequence_number)
             if not ok:
                 # escalation replays the authoritative log (which already
                 # holds this batch) and discards partial staging
@@ -222,11 +383,9 @@ class GpuDocumentApplier:
 
     def ingest_array_batch(self, tenant_id: str, document_id: str,
                            batch) -> None:
-        """Stage a sequenced array batch (``service/array_batch.py``, or
-        anything with its fields) as ONE vectorised chunk. It reads
-        ``boxcar.{n, kind, a, b, rseq, text, text_off, props, client_id}``,
-        ``base_seq`` and ``msns``. Annotates with other than one prop key
-        take the per-op path."""
+        """Stage a SequencedArrayBatch (``service/array_batch.py``) as ONE
+        vectorised chunk: no per-op dicts, tuples or message objects.
+        Annotates with other than one prop key take the per-op path."""
         slot = self.slot_of(tenant_id, document_id)
         box = batch.boxcar
         n = box.n
@@ -235,10 +394,11 @@ class GpuDocumentApplier:
         self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
                                       batch.base_seq + n - 1)
         self._first_seq.setdefault(slot, batch.base_seq)
+        if slot in self._restore_applied:
+            self._post_restore_first.setdefault(slot, batch.base_seq)
 
         def pairs():
-            return [(_array_message(batch, i), _array_wire_op(box, i))
-                    for i in range(n)]
+            return [(batch.message(i), box.wire_op(i)) for i in range(n)]
 
         if slot in self._host_docs:
             for msg, wire_op in pairs():
@@ -251,7 +411,11 @@ class GpuDocumentApplier:
                 or any(len(box.props[int(i)] or {}) != 1 for i in ann_idx)):
             self.ingest_batch(tenant_id, document_id, pairs())
             return
-        client = self._intern_client(slot, box.client_id)
+        table = self._client_ids.setdefault(slot, {})
+        client = table.get(box.client_id)
+        if client is None:
+            client = len(table)
+            table[box.client_id] = client
         chunk = np.zeros((n, OP_FIELDS), np.int32)
         # wire kinds (0 ins, 1 rem, 2 ann) → device op codes (1, 2, 3)
         chunk[:, F_TYPE] = kind.astype(np.int32) + 1
@@ -273,13 +437,19 @@ class GpuDocumentApplier:
         self._push_chunk(slot, chunk)
 
     def _push_chunk(self, slot: int, chunk: np.ndarray) -> None:
-        self._staged.setdefault(slot, []).append(chunk)
-        self._staged_ops += len(chunk)
+        """Append a staged [n, OP_FIELDS] chunk (the ONLY staging-count
+        mutation point besides _take_wave_locked/_drop_staged)."""
+        with self._lock:
+            self._staged.setdefault(slot, []).append(chunk)
+            self._staged_ops += len(chunk)
 
     def _drop_staged(self, slot: int) -> None:
-        dropped = self._staged.pop(slot, None)
-        if dropped:
-            self._staged_ops -= sum(len(c) for c in dropped)
+        """Discard a slot's staged chunks (escalation path), keeping the
+        staged-op count consistent."""
+        with self._lock:
+            dropped = self._staged.pop(slot, None)
+            if dropped:
+                self._staged_ops -= sum(len(c) for c in dropped)
 
     def _stage_op(self, staged, arena, w, seq, ref, client, msn) -> bool:
         """Append a wire op's device tuples (ops/apply field order).
@@ -326,36 +496,112 @@ class GpuDocumentApplier:
     def _stage_annotate(self, staged, start, end, props, seq, ref, client,
                         msn) -> None:
         # one device op per key; in-order apply gives per-key LWW
+        intern_key = self.prop_table.intern_key
+        intern_val = self.prop_table.intern_val
         for k, v in props.items():
             staged.append((OP_ANNOTATE, start, end, seq, ref, client, 0, 0,
-                           msn, 0, self.prop_table.intern_key(k),
-                           NO_VAL if v is None
-                           else self.prop_table.intern_val(v)))
+                           msn, 0, intern_key(k),
+                           NO_VAL if v is None else intern_val(v)))
 
     # -------------------------------------------------------------- flush
 
     def flush(self) -> int:
-        """Dispatch every staged op to the device in [D, K] waves; returns
-        the number of op rows dispatched."""
+        """Dispatch every staged op to the device in [D, K] waves.
+
+        In async mode this only wakes the worker (after re-raising a
+        stored worker exception); in sync mode it dispatches inline and
+        returns the op rows dispatched. Either way the card is fenced only
+        by the periodic overflow poll or by ``finalize()``/queries."""
+        if self._async:
+            self._check_worker()
+            self._wake.set()
+            return 0
+        return self._flush_sync()
+
+    def _flush_sync(self) -> int:
         total = 0
-        while self._staged:
-            total += self._dispatch_wave(self._take_wave())
+        with torch.cuda.stream(self._stream):
+            while self._staged:
+                total += self._dispatch_wave(self._take_wave_locked())
         self.ops_applied += total
         if self._dispatches_since_check >= self.overflow_check_every:
             self._check_overflow()
         return total
 
     def finalize(self) -> None:
-        """Flush staged ops and poll the overflow flags: after this, every
-        doc's state (or its host escalation) reflects everything
-        ingested."""
-        self.flush()
+        """Flush staged ops and fence the device: after this, every doc's
+        state (or its host escalation) reflects everything ingested."""
+        if self._async:
+            self._draining = True
+            try:
+                while True:
+                    self._check_worker()
+                    self._wake.set()
+                    with self._lock:
+                        empty = not self._staged
+                    if empty and self._idle.is_set():
+                        break
+                    time.sleep(0.0005)
+            finally:
+                self._draining = False
+            # the worker may have died after its last wave went idle
+            self._check_worker()
+            with self._lock:
+                pending = sorted(self._overflow_slots)
+                self._overflow_slots.clear()
+            for slot in pending:
+                if slot not in self._host_docs:
+                    self._escalate(slot, None, None)
+            self._drain_device()
+            self._fold_step_times()
+            self._check_overflow()
+            return
+        self._flush_sync()
+        self._drain_device()
+        self._fold_step_times()
         if self._dispatches_since_check:
             self._check_overflow()
 
-    def _take_wave(self) -> list:
-        """Pop up to K staged op rows per doc: [(slot, chunks, rows)]. A
-        chunk that does not fit is split by a view, keeping order."""
+    def close(self) -> None:
+        """Stop and join the worker (async mode) and wait for the last
+        step; re-raises a worker exception not yet raised. From then on
+        the applier dispatches on the caller's thread (ops still staged
+        go out at the next flush). Idempotent."""
+        if self._worker is not None:
+            self._stop = True
+            self._wake.set()
+            self._worker.join(timeout=60)
+            if self._worker.is_alive():
+                raise RuntimeError("applier worker did not stop in 60 s")
+            self._worker = None
+            self._async = False
+            # overflow the worker found but finalize never escalated: the
+            # flags are sticky on the card, so the next read polls again
+            self._dispatches_since_check = max(self._dispatches_since_check,
+                                               1)
+        self._drain_device()
+        self._fold_step_times()
+        err, self._worker_error = self._worker_error, None
+        if err is not None:
+            raise err
+
+    def _check_worker(self) -> None:
+        """Re-raise a stored worker exception (once); after that, refuse
+        to wait on the dead worker."""
+        err, self._worker_error = self._worker_error, None
+        if err is not None:
+            raise err
+        if not self._worker.is_alive():
+            raise RuntimeError("the applier's worker thread is not running "
+                               "(it died on an earlier error)")
+
+    def _take_wave_locked(self):
+        """Pop up to K staged op ROWS per doc (caller holds the lock, or
+        is the only thread). Returns [(slot, chunk_list, row_count)] or
+        None when nothing is staged; a chunk that does not fit is split by
+        a view, keeping order."""
+        if not self._staged:
+            return None
         parts = []
         drained = []
         K = self.K
@@ -385,11 +631,120 @@ class GpuDocumentApplier:
         return parts
 
     def _dispatch_wave(self, parts) -> int:
-        """Stage one wave on the host, copy it to the device and run the
-        step there. Returns the op rows in the wave."""
+        """Stage then execute one wave (the caller has the applier's
+        stream current). Overlap comes from the execute half being an
+        asynchronous enqueue: the NEXT wave's stage half runs on the host
+        while this wave runs on the card."""
+        staged = self._stage_wave(parts)
+        if staged is None:
+            return 0
+        return self._execute_wave(staged)
+
+    # ------------------------------------------------------ async worker
+
+    def _worker_loop(self) -> None:
+        try:
+            with torch.cuda.stream(self._stream):
+                self._worker_run()
+        except BaseException as exc:  # noqa: BLE001 — re-raised by the
+            # caller's next flush/finalize/close
+            self._worker_error = exc
+        finally:
+            self._idle.set()
+
+    def _worker_run(self) -> None:
+        while True:
+            self._wake.wait()
+            if self._stop:
+                return
+            with self._lock:
+                if not self._draining and self._min_wave \
+                        and self._staged_ops < self._min_wave:
+                    parts = None
+                else:
+                    parts = self._take_wave_locked()
+                if parts is None:
+                    self._wake.clear()
+                    self._idle.set()
+                    continue
+                self._idle.clear()
+            n = self._dispatch_wave(parts)
+            with self._lock:
+                self.ops_applied += n
+            if self._dispatches_since_check >= self.overflow_check_every:
+                # poll from the worker (it owns the stream); defer the
+                # escalation replay to the caller's next sync point
+                self._dispatches_since_check = 0
+                flags = self.state.overflow.cpu().numpy()
+                hit = {int(s) for s in np.nonzero(flags)[0]}
+                if hit:
+                    with self._lock:
+                        self._overflow_slots |= hit
+            time.sleep(0)  # yield to the staging thread
+
+    # --------------------------------------------- stage / execute halves
+
+    def _metrics(self):
+        if self._registry is None:
+            self._registry = get_registry()
+        return self._registry
+
+    @blocking("event.synchronize() on the step that last consumed the "
+              "target staging set — the rotation fence")
+    def _rotate_stage_buffers(self) -> None:
+        """Flip to the other staging set, waiting first for the STEP that
+        last consumed it: its pinned memory is the source of a
+        non-blocking copy, which is done only when that step's event has
+        completed. By rotation the fenced wave is two dispatches old, so
+        with the pipeline one wave deep the wait is a no-op — it only
+        blocks when the card has fallen a full double buffer behind."""
+        self._stage_flip ^= 1
+        pending = self._stage_inflight[self._stage_flip]
+        if pending is not None:
+            pending.synchronize()
+            self._stage_inflight[self._stage_flip] = None
+
+    def _stage_buffer(self, shape: tuple, dtype) -> tuple:
+        """A zeroed host staging buffer from the CURRENT rotation set, as
+        (tensor, numpy view of it): pinned on the card's host so its copy
+        can be asynchronous. Callers run _rotate_stage_buffers once per
+        wave first — the zeroing must come after that fence."""
+        pool = self._stage_pool[self._stage_flip]
+        key = (shape, np.dtype(dtype).str)
+        buf = pool.get(key)
+        if buf is None:
+            host = torch.empty(shape, dtype=_TORCH_DTYPE[np.dtype(dtype)],
+                               pin_memory=self._stream is not None)
+            buf = pool[key] = (host, host.numpy())
+        buf[1].fill(0)
+        return buf
+
+    @blocking("event.synchronize() on the last step — the strict-wave-"
+              "order fence at escalation and width-flip seams")
+    def _drain_device(self) -> None:
+        """Wait for the last enqueued step. Escalation, force_wide and
+        close must never act on a farm with a wave still executing."""
+        if self._exec_marker is not None:
+            self._exec_marker.synchronize()
+
+    def _fold_step_times(self) -> None:
+        """Add completed steps' card times to exec_device_seconds. Runs
+        only on the dispatching thread, or with the worker idle."""
+        steps = self._timed_steps
+        while steps and steps[0][1].query():
+            start, end = steps.popleft()
+            self.exec_device_seconds += start.elapsed_time(end) / 1e3
+
+    def _stage_wave(self, parts) -> Optional[_StagedWave]:
+        """The HOST half of a dispatch: concat chunks → pack_wave_rows →
+        scatter into the rotating pinned buffers → asynchronous copy on
+        the applier's stream. No compute is enqueued."""
+        if parts is None:
+            return None
+        t0 = time.perf_counter()
         parts = [p for p in parts if p[2]]  # interval-only batches: no rows
         if not parts:
-            return 0
+            return None
         chunks = [ch for _slot, take, _n in parts for ch in take]
         flat = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
         n = len(flat)
@@ -399,31 +754,127 @@ class GpuDocumentApplier:
         doc_idx = np.repeat(slots_a, lens_a)
         pos_idx = np.arange(n, dtype=np.int64) - np.repeat(starts, lens_a)
         packed, seq_base, text_base = pack_wave_rows(flat, starts, lens_a)
+
+        force_wide = (
+            self.fault_plane is not None
+            and self.fault_plane("applier.dispatch", ops=n) == "force_wide")
+        if force_wide:
+            # the forced int32 lane is a different program: drain the
+            # pipeline so the width flip never reorders around an
+            # in-flight packed wave
+            self._drain_device()
+        fits16 = (not force_wide and packed.min() >= INT16_MIN
+                  and packed.max() <= INT16_MAX)
+        self._rotate_stage_buffers()
         shape = (self.max_docs, self.K, OP_FIELDS)
-        if packed.min() >= INT16_MIN and packed.max() <= INT16_MAX:
-            wave16 = np.zeros(shape, np.int16)
-            wave16[doc_idx, pos_idx] = packed
-            bases = np.zeros((self.max_docs, 2), np.int32)
-            bases[slots_a, 0] = seq_base
-            bases[slots_a, 1] = text_base
-            wave = unpack_wave16(torch.from_numpy(wave16).to(self.device),
-                                 torch.from_numpy(bases).to(self.device))
+        if fits16:
+            wave16, wave16_np = self._stage_buffer(shape, np.int16)
+            wave16_np[doc_idx, pos_idx] = packed
+            bases, bases_np = self._stage_buffer((self.max_docs, 2), np.int32)
+            bases_np[slots_a, 0] = seq_base
+            bases_np[slots_a, 1] = text_base
+            # asynchronous copies on the applier's stream (current on
+            # this thread); on the CPU .to() returns the buffer itself
+            staged = _StagedWave(
+                False, (wave16.to(self.device, non_blocking=True),
+                        bases.to(self.device, non_blocking=True)),
+                n, wave16_np.nbytes + bases_np.nbytes, self._stage_flip)
         else:
             # a field escaped int16 (giant doc, huge window): ship the
             # wave at full int32 width
-            wide = np.zeros(shape, np.int32)
-            wide[doc_idx, pos_idx] = flat
-            wave = torch.from_numpy(wide).to(self.device)
+            wide, wide_np = self._stage_buffer(shape, np.int32)
+            wide_np[doc_idx, pos_idx] = flat
+            staged = _StagedWave(
+                True, (wide.to(self.device, non_blocking=True),), n,
+                wide_np.nbytes, self._stage_flip)
+        dt = time.perf_counter() - t0
+        # overlap accounting: this stage half counts as HIDDEN time when
+        # the previous step is still executing (query() is non-blocking,
+        # so the measurement never perturbs the pipeline it measures)
+        overlapped = (self._exec_marker is not None
+                      and not self._exec_marker.query())
+        self.waves_staged += 1
+        self.stage_seconds += dt
+        self.stage_bytes += staged.nbytes
+        if overlapped:
+            self.stage_overlap_seconds += dt
+        reg = self._metrics()
+        reg.inc("applier.stage.seconds", dt, lane="dense")
+        reg.inc("applier.stage.bytes", staged.nbytes, lane="dense")
+        reg.set_gauge("applier.stage.overlap_ratio",
+                      self.stage_overlap_ratio(), lane="dense")
+        # applier/stage hop: wall-clock stamp at stage completion —
+        # _execute_wave closes the stage→execute leg
+        self._last_stage_wall = time.time()
+        if self.fault_plane is not None:
+            # chaos seam: wave N+1 staged (popped from the staging dict,
+            # copies enqueued) but NOT yet executed — a crash here must
+            # lose nothing: restore replays it from the log
+            self.fault_plane("applier.stage.staged", ops=n)
+        return staged
+
+    def _execute_wave(self, staged: _StagedWave) -> int:
+        """The DEVICE half: enqueue the step on the applier's stream
+        (current on the calling thread) behind the wave's copies, and
+        record its completion event. With overlap on nothing waits; with
+        it off the step is fenced before returning (the serialized
+        behavior, kept for A/B)."""
+        t0 = time.perf_counter()
+        timed = self._stream is not None
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
+        if staged.wide:
+            wave = staged.arrays[0]
             self.wide_dispatches += 1
+        else:
+            wave = unpack_wave16(*staged.arrays)
         state = cuda_apply.apply_ops_batch(self.state, wave)
         self.state = compact_batch(state, wave_min_seq(wave))
+        if timed:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._stream)
+            self._exec_marker = end
+            # the wave's staging set may be refilled only after this
+            # step (and so its copies) completes: _rotate_stage_buffers
+            # fences on it
+            self._stage_inflight[staged.flip] = end
+            self._timed_steps.append((start, end))
+            if not self._overlap:
+                end.synchronize()
+            self._fold_step_times()
+        dt = time.perf_counter() - t0
+        self.exec_seconds += dt
+        reg = self._metrics()
+        reg.inc("applier.exec.seconds", dt, lane="dense")
+        # applier/execute hop: the dispatch-split leg of the hop
+        # breakdown, observed directly into the hop family and retained
+        # as last_wave_hops for a host that forwards the stamps
+        stage_wall = self._last_stage_wall
+        exec_wall = time.time()
+        if stage_wall is not None:
+            ms = (exec_wall - stage_wall) * 1e3
+            reg.observe("obs.hop.ms", ms, pair="stage_to_execute")
+            reg.observe_windowed("obs.hop.window_ms", ms,
+                                 pair="stage_to_execute")
+            self.last_wave_hops = (stage_wall, exec_wall)
         self.dispatches += 1
         self._dispatches_since_check += 1
-        return n
+        if self.fault_plane is not None:
+            # chaos seam: the wave is IN FLIGHT on the card and the next
+            # wave is not yet staged — the other overlap-window order
+            self.fault_plane("applier.stage.inflight", ops=staged.n)
+        return staged.n
+
+    def stage_overlap_ratio(self) -> float:
+        """staged-while-executing seconds / total stage seconds."""
+        return (self.stage_overlap_seconds / self.stage_seconds
+                if self.stage_seconds else 0.0)
 
     def _check_overflow(self) -> None:
         self._dispatches_since_check = 0
-        flags = self.state.overflow.cpu().numpy()  # device→host sync
+        with torch.cuda.stream(self._stream):
+            flags = self.state.overflow.cpu().numpy()  # device→host sync
         for slot in np.nonzero(flags)[0]:
             if int(slot) not in self._host_docs:
                 self._escalate(int(slot), None, None)
@@ -432,6 +883,9 @@ class GpuDocumentApplier:
 
     def _sync(self, slot: int) -> None:
         """Flush + overflow-check before exposing a doc's state."""
+        if self._async:
+            self.finalize()
+            return
         if self._staged.get(slot):
             self.flush()
         if self._dispatches_since_check:
@@ -439,13 +893,15 @@ class GpuDocumentApplier:
 
     def _row(self, slot: int) -> dict:
         """Doc ``slot``'s state fields as numpy arrays."""
-        return {f: getattr(self.state, f)[slot].cpu().numpy()
-                for f in FIELDS}
+        with torch.cuda.stream(self._stream):
+            return {f: getattr(self.state, f)[slot].cpu().numpy()
+                    for f in FIELDS}
 
     def slot_count(self, tenant_id: str, document_id: str) -> int:
         """Live device slots of a doc (bounded under churn by zamboni)."""
         slot = self.slot_of(tenant_id, document_id)
-        return int(self.state.count[slot])
+        with torch.cuda.stream(self._stream):
+            return int(self.state.count[slot])
 
     def get_text(self, tenant_id: str, document_id: str) -> str:
         slot = self.slot_of(tenant_id, document_id)
@@ -467,8 +923,9 @@ class GpuDocumentApplier:
         self._sync(slot)
         if slot in self._host_docs:
             return self._host_docs[slot]
-        tree = decode_state(self.state, self.arenas[slot], self.prop_table,
-                            doc=slot)
+        with torch.cuda.stream(self._stream):
+            tree = decode_state(self.state, self.arenas[slot],
+                                self.prop_table, doc=slot)
         replica = MergeTreeClient(f"gpu-applier/{tenant_id}/{document_id}",
                                   blocked=False)
         replica.tree = tree
@@ -499,12 +956,39 @@ class GpuDocumentApplier:
         raise IndexError(pos)
 
     def applied_seq(self, tenant_id: str, document_id: str) -> int:
-        """Highest sequence number ingested for the doc (0 if none)."""
+        """Highest sequence number ingested for the doc (0 if none).
+        Summary writers compare this against the stream's last channel op
+        to refuse writing a summary from lagging device state."""
         return self._applied_seq.get(self.slot_of(tenant_id, document_id), 0)
 
     def first_seq(self, tenant_id: str, document_id: str) -> int:
         """First sequence number ever ingested for the doc (0 if none)."""
         return self._first_seq.get(self.slot_of(tenant_id, document_id), 0)
+
+    def is_anchored(self, tenant_id: str, document_id: str) -> bool:
+        """True when the slot's state provably covers the doc's whole
+        history (see the coverage-tracking comment in __init__)."""
+        return self.slot_of(tenant_id, document_id) in self._anchored
+
+    def mark_anchored(self, tenant_id: str, document_id: str) -> None:
+        """Record a coverage proof established by the caller (the
+        summarizer's gate pass). Also discharges any pending
+        restore-window condition — the proof subsumes it."""
+        slot = self.slot_of(tenant_id, document_id)
+        self._anchored.add(slot)
+        self._restore_applied.pop(slot, None)
+        self._post_restore_first.pop(slot, None)
+
+    def restore_gap(self, tenant_id: str, document_id: str
+                    ) -> Optional[tuple[int, Optional[int]]]:
+        """(applied seq at checkpoint restore, first seq ingested since)
+        for a restored slot, else None. Ops sequenced in between were
+        never ingested — the summarizer refuses if the stream shows any."""
+        slot = self.slot_of(tenant_id, document_id)
+        if slot not in self._restore_applied:
+            return None
+        return (self._restore_applied[slot],
+                self._post_restore_first.get(slot))
 
     # ---------------------------------------------------- host escalation
 
@@ -517,6 +1001,9 @@ class GpuDocumentApplier:
         """Rebuild the doc on the scalar oracle from its authoritative op
         log and continue host-side."""
         tenant_id, document_id = self._doc_keys[slot]
+        # strict wave order at the escalation seam: the doc leaves the
+        # device farm only after its last in-flight wave lands
+        self._drain_device()
         if self._replay_log is None:
             # degrading to an empty replica would silently lose the doc
             raise RuntimeError(
@@ -531,6 +1018,10 @@ class GpuDocumentApplier:
                 replica.apply_msg(m, local=False)
         self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
                                       replica.tree.current_seq)
+        # deliberately NOT anchored: the applier cannot verify the replay
+        # source yielded the doc's whole history — the summarizer gate
+        # must re-prove coverage before trusting this replica
+        self._anchored.discard(slot)
         if msg is not None:
             self._apply_host(slot, msg, wire_op)
 

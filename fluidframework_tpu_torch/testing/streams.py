@@ -6,8 +6,8 @@ service's sequenced wire ops instead, so these helpers turn one doc's rows
 into (sequenced message, wire op) pairs for ``ingest_batch`` or into
 ``SequencedArrayBatch`` boxcars for ``ingest_array_batch``. Insert text is
 drawn from the caller's numpy generator; annotate key ``k`` becomes the
-prop key ``"k<k>"``. (The JAX package builds such streams inside its
-service load generator, which is not ported yet.)
+prop key ``"k<k>"``. (The service path's own streams come from
+``service/load_gen.run_inproc``.)
 """
 
 from __future__ import annotations
