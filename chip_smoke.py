@@ -13,6 +13,13 @@ the service path: ``service/load_gen.run_inproc`` (clients → LocalServer →
 deli → scriptorium, scribe, broadcaster) at 1024 docs × 2 clients × 48 ops
 with the async, overlap-staged applier riding the broadcast, held against
 a CPU applier, against itself with overlap off, and on the dict lane.
+Then the crash-safe applier stage: the service applier is checkpointed,
+loaded back onto the card and onto the CPU, and fed a further tail
+(``checkpoint``); a core writes the service run into a ``DurableLog`` and
+an in-process ``ApplierStage`` on the card drains it (``stage``); and the
+split deployment runs the stage as a child process on the card tailing
+the core's log live, then kills it with SIGKILL mid-stream and restarts it
+over the same directories (``split``).
 Each phase prints one JSON line; any failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
 limit as ``nvidia-smi`` reports them; the last line is
@@ -22,13 +29,25 @@ limit as ``nvidia-smi`` reports them; the last line is
 from __future__ import annotations
 
 import json
+import os
 import random
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# The durable logs of the stage phases hold 1024 docs of 8 native handles
+# each, all written at once. The default handle cap (2048, sized for cores
+# of 10k mostly idle docs) would cycle a handle on nearly every append, so
+# these runs lift it, as a deployment of this size would (the stage child
+# inherits the setting). tools/profile_durable_log.py measures both.
+os.environ.setdefault("FLUID_LOG_FD_CAP", "0")
 
 # the port's kernels, for the kernel table
 REPLACES = {"apply_ops_batch": "fluidframework_tpu/ops/pallas_apply.py:355"}
@@ -436,7 +455,435 @@ def phase_service(name: str, power: str):
            "texts_match_cpu": list(checks),
            "name": name, "card": power}
     emit(row)
+    return launches, app, cpu_texts, row
+
+
+def _tail_pairs(app, docs: list, n_ops: int, seed: int) -> dict:
+    """{doc: [(message, wire op)]}: ``n_ops`` random inserts and removes a
+    doc from a new client, valid against the doc's current text and
+    sequenced after everything ``app`` has applied."""
+    from fluidframework_tpu_torch.protocol import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+
+    rng = random.Random(seed)
+    out = {}
+    for doc in docs:
+        length = len(app.get_text("bench", doc))
+        seq = app.applied_seq("bench", doc)
+        pairs = []
+        for _ in range(n_ops):
+            seq += 1
+            if length and rng.random() < 0.4:
+                start = rng.randrange(length)
+                end = min(length, start + 1 + rng.randrange(4))
+                op = {"type": 1, "start": start, "end": end}
+                length -= end - start
+            else:
+                text = "xyz"[:1 + rng.randrange(3)]
+                op = {"type": 0, "pos": rng.randrange(length + 1),
+                      "text": text}
+                length += len(text)
+            pairs.append((SequencedDocumentMessage(
+                client_id="tail", sequence_number=seq,
+                minimum_sequence_number=seq - 1,
+                client_sequence_number=seq, reference_sequence_number=seq - 1,
+                type=MessageType.OPERATION, contents=op), op))
+        out[doc] = pairs
+    return out
+
+
+def phase_checkpoint(app, power: str, device: str = "cuda"):
+    """The service phase's card applier, checkpointed after ``finalize``
+    (``save_applier_checkpoint``), loaded back onto the card and onto the
+    CPU: every doc's text and applied seq must equal the saved applier's,
+    before and after the same further waves. Returns B1's launches on
+    those waves."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+        save_applier_checkpoint,
+    )
+
+    docs = [f"doc{d}" for d in range(SERVICE_RUN["n_docs"])]
+    with _scratch_dir() as tmp:
+        path = os.path.join(tmp, "farm")
+        t0 = time.perf_counter()
+        save = save_applier_checkpoint(app, path)
+        save_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_applier_checkpoint(path, device=device,
+                                         ops_per_dispatch=app.K)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t0
+        on_cpu = load_applier_checkpoint(path, device="cpu",
+                                         ops_per_dispatch=app.K)
+    for what, other in (("loaded", loaded), ("cpu", on_cpu)):
+        bad = [d for d in docs
+               if other.get_text("bench", d) != app.get_text("bench", d)
+               or other.applied_seq("bench", d)
+               != app.applied_seq("bench", d)]
+        if bad:
+            fail(f"checkpoint: {what}: {len(bad)} docs differ from the "
+                 f"saved applier (first {bad[0]})")
+    tail = _tail_pairs(app, docs, 2 * app.K, seed=21)
+    dispatched = app.dispatches + loaded.dispatches
+    cuda_apply.LAUNCHES = 0
+    for target in (app, loaded):
+        for doc, pairs in tail.items():
+            target.ingest_batch("bench", doc, pairs)
+        target.finalize()
+    launches = cuda_apply.LAUNCHES
+    dispatched = app.dispatches + loaded.dispatches - dispatched
+    for doc, pairs in tail.items():
+        on_cpu.ingest_batch("bench", doc, pairs)
+    on_cpu.finalize()
+    if launches != dispatched or launches == 0:
+        fail(f"checkpoint: {launches} kernel launches for {dispatched} "
+             "dispatches")
+    for what, other in (("loaded", loaded), ("cpu", on_cpu)):
+        bad = [d for d in docs
+               if other.get_text("bench", d) != app.get_text("bench", d)]
+        if bad:
+            fail(f"checkpoint: after the tail, {what}: {len(bad)} docs "
+                 f"differ (first {bad[0]})")
+    if app.host_escalations or loaded.host_escalations:
+        fail("checkpoint: the tail escalated a doc")
+    emit({"phase": "checkpoint", "docs": len(docs), "slots": app.max_slots,
+          "K": app.K, "save_seconds": save_seconds,
+          "readback_seconds": save["readback_seconds"],
+          "savez_seconds": save["write_seconds"],
+          "npz_bytes": save["npz_bytes"], "load_seconds": load_seconds,
+          "tail_ops": sum(len(p) for p in tail.values()),
+          "launches": launches, "texts_match": ["loaded", "cpu"],
+          "card": power})
     return launches
+
+
+def _last_seqs(log, docs: list) -> dict:
+    """Each doc's last sequenced seq, from its deltas topic."""
+    out = {}
+    for doc in docs:
+        topic = f"deltas/bench/{doc}"
+        rec = log.read(topic, log.length(topic) - 1)
+        out[doc] = (rec["abatch"].last_seq if "abatch" in rec
+                    else (rec.get("boxcar") or [rec.get("message")])[-1]
+                    .sequence_number)
+    return out
+
+
+def phase_stage(cpu_texts: list, power: str, device: str = "cuda"):
+    """The service run written into a ``DurableLog`` by a core, then
+    drained by an in-process ``ApplierStage`` on the card with
+    ``run_once``: texts equal to the CPU applier's, B1 launched once a
+    dispatch, the backchannel's newest ``applied`` record at each doc's
+    last seq, and no doc escalated in the saved checkpoint."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.service.load_gen import run_inproc
+    from fluidframework_tpu_torch.service.stage_runner import (
+        BACKCHANNEL_TOPIC,
+        ApplierStage,
+    )
+
+    docs = [f"doc{d}" for d in range(SERVICE_RUN["n_docs"])]
+    with _scratch_dir() as tmp:
+        log_dir, state_dir = (os.path.join(tmp, "log"),
+                              os.path.join(tmp, "state"))
+        os.makedirs(log_dir)
+        log = DurableLog(log_dir)
+        core = run_inproc(array_lane=True, log=log, **SERVICE_RUN)
+        log.flush()
+        last = _last_seqs(log, docs)
+        log.close()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stage = ApplierStage(log_dir, state_dir,
+                             max_docs=SERVICE_GEO["max_docs"],
+                             max_slots=SERVICE_GEO["max_slots"],
+                             device=device)
+        t1 = time.perf_counter()
+        rounds = 1
+        while stage.run_once():
+            rounds += 1
+        seconds = time.perf_counter() - t1
+        launches = cuda_apply.LAUNCHES
+        app = stage.applier
+        newest = {}
+        for i in range(stage.state.length(BACKCHANNEL_TOPIC)):
+            rec = stage.state.read(BACKCHANNEL_TOPIC, i)
+            if rec["kind"] == "applied":
+                newest[rec["doc"]] = rec["applied_seq"]
+        with open(os.path.join(state_dir, "applier.json")) as f:
+            host_docs = json.load(f)["host_docs"]
+        texts = [app.get_text("bench", d) for d in docs]
+    bad = [d for d in range(len(docs)) if texts[d] != cpu_texts[d]]
+    if bad:
+        fail(f"stage: {len(bad)} docs differ from the CPU applier (first "
+             f"doc{bad[0]})")
+    if launches != app.dispatches or launches == 0:
+        fail(f"stage: {launches} kernel launches for {app.dispatches} "
+             "dispatches")
+    lagging = [d for d in docs if newest.get(d) != last[d]]
+    if lagging:
+        fail(f"stage: {len(lagging)} docs' applied records lag their last "
+             f"seq (first {lagging[0]})")
+    if host_docs or app.host_escalations:
+        fail(f"stage: {len(host_docs)} escalated docs in the checkpoint")
+    emit({"phase": "stage", "docs": len(docs), "ops": core.ops_submitted,
+          "core_seconds": core.seconds, "core_ops_per_sec": core.ops_per_sec,
+          "open_seconds": t1 - t0, "drain_seconds": seconds,
+          "drain_ops_per_sec": core.ops_submitted / seconds,
+          "run_once_rounds": rounds, "dispatches": app.dispatches,
+          "launches": launches, "ops_applied": app.ops_applied,
+          "stage_seconds": app.stage_seconds, "exec_seconds": app.exec_seconds,
+          "last_save": stage.last_save, "host_escalations": 0,
+          "log_fd_cap": int(os.environ["FLUID_LOG_FD_CAP"]), "card": power})
+    return launches
+
+
+#: the split deployment's stage process: an ApplierStage at the service
+#: geometry (the command line's ``main`` builds 64 docs)
+STAGE_CHILD = """
+import sys
+from fluidframework_tpu_torch.service.stage_runner import ApplierStage
+ApplierStage(sys.argv[1], sys.argv[2], max_docs=int(sys.argv[3]),
+             max_slots=int(sys.argv[4]), device=sys.argv[5]).run_forever()
+"""
+#: core records between flushes: a stage process sees only flushed records
+SPLIT_FLUSH_EVERY = 64
+CHILD_TIMEOUT_S = 120.0
+
+
+def _scratch_dir():
+    """A temporary directory inside the checkout (``build/smoke/``), where
+    the stage phases keep their logs and checkpoints."""
+    root = os.path.join(HERE, "build", "smoke")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=root)
+
+
+def _deltas_records() -> int:
+    """Records the service run writes to its deltas topics: each client's
+    join and its boxcars."""
+    run = SERVICE_RUN
+    per_client = 1 + run["ops_per_client"] // run["batch_size"]
+    return run["n_docs"] * run["clients_per_doc"] * per_client
+
+
+def _flushing_log(directory: str, every: int):
+    """A ``DurableLog`` that flushes every ``every`` appends, so a
+    reader process tails the core while it runs."""
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+
+    class FlushingLog(DurableLog):
+        def append(self, topic, value, partition=0):
+            offset = super().append(topic, value, partition)
+            self.appends_since_flush = getattr(
+                self, "appends_since_flush", 0) + 1
+            if self.appends_since_flush >= every:
+                self.appends_since_flush = 0
+                self.flush()
+            return offset
+
+    return FlushingLog(directory)
+
+
+class _StageProcess:
+    """The stage child on the card, its readiness, and a reader of its
+    backchannel (the newest ``applied`` seq per doc)."""
+
+    def __init__(self, log_dir: str, state_dir: str, device: str,
+                 err_path: str):
+        self.state_dir = state_dir
+        self.started = time.perf_counter()
+        self.err = open(err_path, "a")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", STAGE_CHILD, log_dir, state_dir,
+             str(SERVICE_GEO["max_docs"]), str(SERVICE_GEO["max_slots"]),
+             device],
+            cwd=HERE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True)
+        ready = []
+        reader = threading.Thread(
+            target=lambda: ready.append(self.proc.stdout.readline()),
+            daemon=True)
+        reader.start()
+        reader.join(CHILD_TIMEOUT_S)
+        if not ready or ready[0].strip() != "READY":
+            self.kill()
+            fail(f"split: the stage process did not print READY "
+                 f"(got {ready}, rc {self.proc.poll()}); stderr in "
+                 f"{err_path}")
+        self.ready = time.perf_counter()
+        self.log = None
+        self.pos = 0
+        self.newest: dict = {}
+
+    def poll(self) -> dict:
+        from fluidframework_tpu_torch.service.durable_log import DurableLog
+        from fluidframework_tpu_torch.service.stage_runner import (
+            BACKCHANNEL_TOPIC,
+        )
+
+        if self.proc.poll() is not None:
+            fail(f"split: the stage process exited ({self.proc.returncode})")
+        if self.log is None:
+            self.log = DurableLog(self.state_dir, readonly=True)
+        n = self.log.refresh_topic(BACKCHANNEL_TOPIC)
+        for i in range(self.pos, n):
+            rec = self.log.read(BACKCHANNEL_TOPIC, i)
+            if rec["kind"] == "applied":
+                self.newest[rec["doc"]] = rec["applied_seq"]
+        self.pos = n
+        return self.newest
+
+    def wait_caught_up(self, last: dict) -> float:
+        """Seconds until every doc's newest applied seq is its last (the
+        backchannel's records from the start: a restarted stage reports
+        only the docs it had to replay)."""
+        t0 = time.perf_counter()
+        while True:
+            newest = self.poll()
+            if all(newest.get(d) == s for d, s in last.items()):
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > CHILD_TIMEOUT_S:
+                self.kill()
+                fail(f"split: the stage did not catch up in "
+                     f"{CHILD_TIMEOUT_S} s")
+            time.sleep(0.005)
+
+    def kill(self, sig=signal.SIGKILL) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+        self.proc.wait(timeout=60)
+        if self.log is not None:
+            self.log.close()
+            self.log = None
+        self.err.close()
+
+
+def _farm_texts(state_dir: str, docs: list, device: str) -> list:
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+
+    farm = load_applier_checkpoint(os.path.join(state_dir, "applier"),
+                                   device=device)
+    if farm.host_escalations or farm._host_docs:
+        fail("split: the stage escalated docs")
+    return [farm.get_text("bench", d) for d in docs]
+
+
+def phase_split(cpu_texts: list, service_row: dict, power: str,
+                device: str = "cuda"):
+    """The split deployment: this process is the core (the service run
+    into a log that flushes every SPLIT_FLUSH_EVERY appends) and the
+    ApplierStage is a child process on the card tailing it. Reports the
+    core's ops/s and ack latency beside the in-process appliers', and the
+    catch-up lag from the core's last ack to the stage's last ``applied``
+    record. A second run holds the child to half the deltas records (its
+    ``ctl.json`` stepping control), kills it with SIGKILL after its first
+    ``applied`` record, restarts it over the same directories without the
+    hold, and times its catch-up; both farms' final checkpoints must hold
+    the CPU texts."""
+    from fluidframework_tpu_torch.service.load_gen import run_inproc
+
+    docs = [f"doc{d}" for d in range(SERVICE_RUN["n_docs"])]
+    row = {"phase": "split", "docs": len(docs),
+           "flush_every_records": SPLIT_FLUSH_EVERY,
+           "log_fd_cap": int(os.environ["FLUID_LOG_FD_CAP"])}
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    err_path = os.path.join(out_dir, "split_stage_stderr.txt")
+    children = []
+    try:
+        for run in ("live", "killed"):
+            with _scratch_dir() as tmp:
+                log_dir, state_dir = (os.path.join(tmp, "log"),
+                                      os.path.join(tmp, "state"))
+                os.makedirs(log_dir)
+                log = _flushing_log(log_dir, SPLIT_FLUSH_EVERY)
+                ctl = os.path.join(state_dir, "ctl.json")
+                if run == "killed":
+                    # the stage's stepping control holds it to half the
+                    # deltas records, so the kill lands mid-stream
+                    os.makedirs(state_dir)
+                    with open(ctl, "w") as f:
+                        json.dump({"mode": "pause",
+                                   "steps": _deltas_records() // 2}, f)
+                child = _StageProcess(log_dir, state_dir, device, err_path)
+                children.append(child)
+                killed = []
+                if run == "killed":
+                    def killer():
+                        while not child.poll():
+                            time.sleep(0.002)
+                        child.proc.send_signal(signal.SIGKILL)
+                        killed.append(time.perf_counter())
+
+                    watcher = threading.Thread(target=killer, daemon=True)
+                    watcher.start()
+                stats = run_inproc(array_lane=True, log=log, **SERVICE_RUN)
+                last_ack = time.perf_counter()
+                log.flush()
+                last = _last_seqs(log, docs)
+                if stats.ops_acked != stats.ops_submitted:
+                    fail(f"split: {stats.ops_acked} of "
+                         f"{stats.ops_submitted} acked")
+                if run == "live":
+                    child.wait_caught_up(last)
+                    row.update(
+                        core_ops_per_sec=stats.ops_per_sec,
+                        core_seconds=stats.seconds,
+                        p50_ack_ms=stats.latency_ms(0.50),
+                        p99_ack_ms=stats.latency_ms(0.99),
+                        catch_up_lag_seconds=time.perf_counter() - last_ack,
+                        stage_start_seconds=child.ready - child.started)
+                    child.kill(signal.SIGTERM)
+                else:
+                    watcher.join(CHILD_TIMEOUT_S)
+                    if not killed:
+                        fail("split: the stage never reported an applied "
+                             "record")
+                    child.kill()
+                    # whether the kill landed mid-stream: docs the killed
+                    # stage had not reported through their last seq
+                    row["lagging_docs_at_kill"] = sum(
+                        child.newest.get(d) != s for d, s in last.items())
+                    row["killed_before_last_ack"] = killed[0] < last_ack
+                    os.remove(ctl)
+                    child = _StageProcess(log_dir, state_dir, device,
+                                          err_path)
+                    children.append(child)
+                    row["restart_ready_seconds"] = child.ready - child.started
+                    catch_up = child.wait_caught_up(last)
+                    row["restart_catch_up_seconds"] = catch_up
+                    row["restart_catch_up_from_spawn_seconds"] = (
+                        child.ready - child.started + catch_up)
+                    child.kill(signal.SIGTERM)
+                log.close()
+                texts = _farm_texts(state_dir, docs, device)
+            bad = [d for d in range(len(docs)) if texts[d] != cpu_texts[d]]
+            if bad:
+                fail(f"split ({run}): {len(bad)} docs differ from the CPU "
+                     f"applier (first doc{bad[0]})")
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait(timeout=60)
+    row.update(service_async_ops_per_sec=service_row["ops_per_sec"],
+               service_sync_card_ops_per_sec=service_row[
+                   "sync_card_ops_per_sec"],
+               service_p50_ack_ms=service_row["p50_ack_ms"],
+               service_p99_ack_ms=service_row["p99_ack_ms"],
+               pipeline_only_ops_per_sec=service_row[
+                   "pipeline_only_ops_per_sec"],
+               texts_match_cpu=["live", "killed"], card=power)
+    emit(row)
 
 
 def main() -> None:
@@ -477,7 +924,11 @@ def main() -> None:
     ]
     launches = phase_main_path(power)
     phase_escalation()
-    launches += phase_service(name, power)
+    service_launches, app, cpu_texts, service_row = phase_service(name, power)
+    launches += service_launches
+    launches += phase_checkpoint(app, power)
+    launches += phase_stage(cpu_texts, power)
+    phase_split(cpu_texts, service_row, power)
 
     main_row = rows[0]  # the main path's shape: D=1024, S=256, K=32
     print(json.dumps({"kernels": [{

@@ -13,6 +13,10 @@ broadcast ops on the host (on a worker thread with ``async_dispatch``);
 each wave runs ``ops.apply.unpack_wave16`` →
 ``ops.cuda_apply.apply_ops_batch`` (the hand-written CUDA kernel in
 ``csrc/apply.cu``) → ``ops.apply.compact_batch`` on the applier's own
-CUDA stream. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+CUDA stream. The farm checkpoints in the JAX package's format
+(``service.gpu_applier.save_applier_checkpoint``), the log can be durable
+(``service.durable_log.DurableLog`` over the C++ op log in
+``csrc/oplog.cpp``), and ``service.stage_runner.ApplierStage`` runs the
+farm in a process of its own that tails such a log. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,10 +1,11 @@
 """Array-native boxcars: a client's boxcar of text ops as arrays.
 
 JAX counterpart: ``fluidframework_tpu/service/array_batch.py``
-(``ArrayBoxcar``, ``SequencedArrayBatch``). This is a copy of those two
-classes with ``to_raw_boxcar``, the bridge into deli's ``RawBoxcar``. The
-binwire column cache (``wire_cols``) waits for the network front end, and
-the durable-log codec for the checkpoint slice (ROADMAP A4).
+(``ArrayBoxcar``, ``SequencedArrayBatch``, the ``abox``/``abatch``
+durable-log codecs). This is a copy of those two classes with
+``to_raw_boxcar``, the bridge into deli's ``RawBoxcar``, the binwire
+column cache (``wire_cols``) the durable log's segment blocks reuse, and
+the codecs registered with ``protocol.serialization``.
 
 A client's submitted boxcar of merge-tree text ops rides the pipeline as
 structure-of-arrays — int32 fields plus one concatenated text blob — so
@@ -56,6 +57,12 @@ class ArrayBoxcar:
     text_off: np.ndarray  # int32 [n+1] offsets into text (non-inserts 0-len)
     props: Optional[list] = None  # per-op props dict or None (annotates)
     timestamp: float = 0.0
+    # raw binwire column section the boxcar was encoded as, memoized by
+    # the durable log (one encode serves the rawops record and the deltas
+    # block). Transport cache only — deliberately OUTSIDE the durable
+    # codecs below (a replayed boxcar re-encodes on demand).
+    wire_cols: Optional[bytes] = field(default=None, repr=False,
+                                       compare=False)
     # accumulated trace hops [(hop_id, ts), ...] (sampled boxcars only;
     # None when tracing is unarmed). Each tier APPENDS its hop in place.
     # Transport-only: deliberately outside any durable codec.
@@ -143,3 +150,71 @@ class SequencedArrayBatch:
         if self._materialized is None:
             self._materialized = [self.message(i) for i in range(self.n)]
         return self._materialized
+
+
+# ------------------------------------------------------- durable-log codec
+# Array fields serialize as base64 of their little-endian bytes —
+# json-encoding an int list costs ~10× a b64encode of the same data,
+# and these records ARE the durable hot path in the split deployment.
+
+import base64 as _b64  # noqa: E402
+
+
+def _enc(arr: np.ndarray) -> str:
+    return _b64.b64encode(np.ascontiguousarray(arr).tobytes()).decode()
+
+
+def _dec(s: str, dtype) -> np.ndarray:
+    return np.frombuffer(_b64.b64decode(s), dtype=dtype)
+
+
+def _boxcar_to_dict(box: ArrayBoxcar) -> dict:
+    return {
+        "tenant_id": box.tenant_id, "document_id": box.document_id,
+        "client_id": box.client_id, "ds": box.ds_id, "ch": box.channel_id,
+        "kind": _enc(box.kind), "a": _enc(box.a), "b": _enc(box.b),
+        "cseq": _enc(box.cseq), "rseq": _enc(box.rseq),
+        "text": box.text, "text_off": _enc(box.text_off),
+        "props": box.props, "timestamp": box.timestamp,
+    }
+
+
+def _boxcar_from_dict(d: dict) -> ArrayBoxcar:
+    return ArrayBoxcar(
+        tenant_id=d["tenant_id"], document_id=d["document_id"],
+        client_id=d["client_id"], ds_id=d["ds"], channel_id=d["ch"],
+        kind=_dec(d["kind"], np.int8),
+        a=_dec(d["a"], np.int32), b=_dec(d["b"], np.int32),
+        cseq=_dec(d["cseq"], np.int32),
+        rseq=_dec(d["rseq"], np.int32),
+        text=d["text"], text_off=_dec(d["text_off"], np.int32),
+        props=d.get("props"), timestamp=d["timestamp"],
+    )
+
+
+def _abatch_to_dict(batch: SequencedArrayBatch) -> dict:
+    return {
+        "boxcar": _boxcar_to_dict(batch.boxcar),
+        "base_seq": batch.base_seq,
+        "msns": _enc(batch.msns),
+        "timestamp": batch.timestamp,
+    }
+
+
+def _abatch_from_dict(d: dict) -> SequencedArrayBatch:
+    return SequencedArrayBatch(
+        boxcar=_boxcar_from_dict(d["boxcar"]), base_seq=d["base_seq"],
+        msns=_dec(d["msns"], np.int64), timestamp=d["timestamp"],
+    )
+
+
+def _register_codecs() -> None:
+    from ..protocol.serialization import register_message_type
+
+    register_message_type("abox", ArrayBoxcar, _boxcar_to_dict,
+                          _boxcar_from_dict)
+    register_message_type("abatch", SequencedArrayBatch, _abatch_to_dict,
+                          _abatch_from_dict)
+
+
+_register_codecs()

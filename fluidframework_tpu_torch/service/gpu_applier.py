@@ -1,7 +1,9 @@
 """GpuDocumentApplier: the batched server-side merge-tree replica farm.
 
 JAX counterpart: ``fluidframework_tpu/service/tpu_applier.py::
-TpuDocumentApplier`` without its mesh lane and checkpoints (ROADMAP A4).
+TpuDocumentApplier`` without its mesh lane (ROADMAP A7), with
+``save_applier_checkpoint`` / ``load_applier_checkpoint`` writing and
+reading the JAX package's checkpoint format byte for byte.
 The service keeps thousands of documents as ONE device-resident
 structure-of-arrays batch (``ops/doc_state.DocState`` with a leading doc
 dimension) and applies every sequenced merge-tree op to it in waves of up
@@ -57,6 +59,8 @@ Semantics guardrails (as in the JAX package):
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -103,6 +107,7 @@ from ..ops.doc_state import (
     PropTable,
     TextArena,
     decode_state,
+    state_from_numpy,
 )
 from ..parallel.placement import DocPlacement
 from ..protocol.messages import MessageType
@@ -227,8 +232,8 @@ class GpuDocumentApplier:
         # _anchored = slots whose state provably covers the doc's WHOLE
         # history (a caller's coverage proof). _restore_applied and
         # _post_restore_first carry a checkpoint restore's window, which
-        # the summarizer must see closed (restore_gap); checkpoints are
-        # not ported yet, so only mark_anchored touches them here.
+        # the summarizer must see closed (restore_gap);
+        # load_applier_checkpoint opens it, mark_anchored discharges it.
         self._applied_seq: dict[int, int] = {}
         self._first_seq: dict[int, int] = {}
         self._anchored: set[int] = set()
@@ -1030,3 +1035,125 @@ class GpuDocumentApplier:
         if msg.sequence_number <= replica.tree.current_seq:
             return  # already covered by the escalation replay
         replica.apply_msg(replace(msg, contents=wire_op), local=False)
+
+
+# ----------------------------------------------------------- checkpointing
+
+def save_applier_checkpoint(applier: GpuDocumentApplier, path: str) -> dict:
+    """Persist the applier's farm to disk in the JAX package's format
+    (``tpu_applier.save_applier_checkpoint``): the [D, S] state arrays in
+    ``<path>.g<gen>.npz`` and the host sidecars (text arenas, property
+    interning, client tables, placement, escalated docs as oracle
+    snapshots, coverage and restore windows) in ``<path>.json``. A warm
+    restart loads this instead of replaying every doc's op log.
+
+    Calls ``finalize()`` first, so the state is fenced (an async
+    applier's worker is drained, and a stored worker exception raises
+    here before anything is written). The state is read back on the
+    applier's stream. Returns the save's costs: ``readback_seconds``
+    (device to host), ``write_seconds`` (compress and write both files)
+    and ``npz_bytes``."""
+    applier.finalize()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(applier._stream):
+        arrays = {f: getattr(applier.state, f).cpu().numpy() for f in FIELDS}
+    t1 = time.perf_counter()
+    meta = {
+        "max_docs": applier.max_docs,
+        "max_slots": applier.max_slots,
+        "arenas": [a.text() for a in applier.arenas],
+        "prop_table": applier.prop_table.snapshot(),
+        "client_ids": {str(k): v for k, v in applier._client_ids.items()},
+        "doc_keys": {str(k): list(v) for k, v in applier._doc_keys.items()},
+        "placement": applier.placement.snapshot(),
+        "host_docs": {str(k): replica.snapshot()
+                      for k, replica in applier._host_docs.items()},
+        "host_doc_names": {str(k): applier._doc_keys[k]
+                           for k in applier._host_docs},
+        "applied_seq": {str(k): v
+                        for k, v in applier._applied_seq.items()},
+        "first_seq": {str(k): v for k, v in applier._first_seq.items()},
+        "anchored": sorted(applier._anchored),
+        # a still-pending restart window must survive the save, or a
+        # save/load cycle would discharge an unverified window
+        "restore_applied": {str(k): v
+                            for k, v in applier._restore_applied.items()},
+    }
+    # crash-atomic commit: the arrays go to the other generation's file
+    # (through a .tmp and a rename), and the .json, which names the
+    # generation, is renamed into place last — the commit point. Until
+    # then the previous consistent pair survives a kill.
+    gen = 0
+    try:
+        with open(path + ".json") as f:
+            gen = 1 - int(json.load(f).get("gen", 0))
+    except (OSError, ValueError):
+        pass
+    meta["gen"] = gen
+    npz_path = f"{path}.g{gen}.npz"
+    with open(npz_path + ".tmp", "wb") as f:
+        np.savez_compressed(f, **arrays)
+    os.replace(npz_path + ".tmp", npz_path)
+    with open(path + ".json.tmp", "w") as f:
+        json.dump(meta, f)
+    os.replace(path + ".json.tmp", path + ".json")
+    return {"readback_seconds": t1 - t0,
+            "write_seconds": time.perf_counter() - t1,
+            "npz_bytes": os.path.getsize(npz_path)}
+
+
+def load_applier_checkpoint(path: str, **applier_kwargs
+                            ) -> GpuDocumentApplier:
+    """Rebuild a fenced applier from a checkpoint written by
+    ``save_applier_checkpoint`` in either package. ``applier_kwargs`` go
+    to ``GpuDocumentApplier`` (``device`` defaults to ``cuda``); the
+    geometry comes from the file, so the pinned staging sets are sized by
+    its ``max_docs``. The state tensors are made on the applier's stream.
+
+    A placement of several shards loads as the JAX applier loads it
+    without a mesh: rows stay shard-major on the one device."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    applier = GpuDocumentApplier(max_docs=meta["max_docs"],
+                                 max_slots=meta["max_slots"],
+                                 **applier_kwargs)
+    # generation-named arrays (crash-atomic saver); plain ".npz" is the
+    # legacy single-generation layout
+    npz_path = (f"{path}.g{meta['gen']}.npz" if "gen" in meta
+                else path + ".npz")
+    with np.load(npz_path) as data:
+        arrays = {k: data[k] for k in data.files}
+    with torch.cuda.stream(applier._stream):
+        applier.state = state_from_numpy(arrays, applier.device)
+    for slot, text in enumerate(meta["arenas"]):
+        arena = TextArena()
+        if text:
+            arena.append(text)
+        applier.arenas[slot] = arena
+    applier.prop_table = PropTable.load(meta["prop_table"])
+    applier._client_ids = {int(k): dict(v)
+                           for k, v in meta["client_ids"].items()}
+    applier._doc_keys = {int(k): tuple(v)
+                         for k, v in meta["doc_keys"].items()}
+    applier.placement = DocPlacement.load(meta["placement"])
+    for k, snap in meta["host_docs"].items():
+        tenant_id, document_id = meta["host_doc_names"][k]
+        applier._host_docs[int(k)] = MergeTreeClient.load(
+            f"gpu-applier/{tenant_id}/{document_id}", snap)
+    applier._applied_seq = {int(k): v for k, v in
+                            meta.get("applied_seq", {}).items()}
+    applier._first_seq = {int(k): v for k, v in
+                          meta.get("first_seq", {}).items()}
+    # a checkpoint without an anchor set (written before coverage
+    # tracking) restores unanchored: safe, never lossy
+    applier._anchored = set(meta.get("anchored", []))
+    # restored anchors are conditional: the summarizer also verifies that
+    # no ops were sequenced in the restart window (restore_gap)
+    applier._restore_applied = dict(applier._applied_seq)
+    # a window the checkpoint itself left open keeps its older low bound,
+    # so the gate inspects the union of both windows
+    for k, v in meta.get("restore_applied", {}).items():
+        slot = int(k)
+        applier._restore_applied[slot] = min(
+            v, applier._restore_applied.get(slot, v))
+    return applier

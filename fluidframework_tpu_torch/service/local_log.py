@@ -12,8 +12,8 @@ reproducible (the OpProcessingController property, SURVEY §4).
 ``OrderedLogBase`` owns the subtle parts once — subscriber positions,
 fixed-point drain, single-step delivery — over three storage primitives:
 ``_store`` / ``_load`` / ``_stored_length``. ``LocalLog`` keeps records
-in memory (the JAX package's ``DurableLog``, which persists them through
-the native C++ op log, is not ported yet).
+in memory; ``service.durable_log.DurableLog`` persists them through the
+native C++ op log.
 """
 
 from __future__ import annotations

@@ -3,8 +3,11 @@ CPU fallback.
 
 Every module of ``fluidframework_tpu_torch`` and ``chip_smoke.py`` is
 parsed, and no import may name ``jax``, ``jaxlib`` or the module
-``fluidframework_tpu`` (or a submodule of it). The kernel path refuses CPU
-tensors, and an entry point given no device refuses to run without a card.
+``fluidframework_tpu`` (or a submodule of it), and no string a file could
+run as a child's command line names a module of the JAX package. The op
+log is built only from the port's own C++ source. The kernel path refuses
+CPU tensors, and an entry point given no device refuses to run without a
+card.
 """
 
 import ast
@@ -81,3 +84,65 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_apply.build()
     assert not list(tmp_path.rglob("*.so"))
+
+
+def test_native_build_reads_only_port_sources(monkeypatch, tmp_path):
+    """The op log is compiled from the port's own copy of its source."""
+    import subprocess
+
+    from fluidframework_tpu_torch.native import build as native_build
+
+    commands = []
+
+    def fake_run(cmd, **kwargs):
+        commands.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build.subprocess, "run", fake_run)
+    lib = native_build.build("oplog")
+    assert lib.parent == tmp_path / "build" and lib.exists()
+    (cmd,) = commands
+    sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [PORT / "csrc" / "oplog.cpp"]
+    assert native_build.source("oplog").is_relative_to(PORT)
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_native_build_needs_gxx(monkeypatch, tmp_path):
+    from fluidframework_tpu_torch.native import build as native_build
+
+    monkeypatch.setattr(native_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native_build.build("oplog")
+    assert not list(tmp_path.rglob("*.so"))
+
+
+def _strings(path: Path) -> list:
+    """String constants of a file that are not docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_package_in_command_strings(path):
+    """No string a port file can run (a ``python -m`` or ``-c`` child's
+    command line) names a module of the JAX package."""
+    import re
+
+    bad = [s for s in _strings(path)
+           if re.search(r"(?<![\w/])fluidframework_tpu\.", s)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
