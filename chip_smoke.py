@@ -20,7 +20,16 @@ an in-process ``ApplierStage`` on the card drains it (``stage``); and the
 split deployment runs the stage as a child process on the card tailing
 the core's log live, then kills it with SIGKILL mid-stream and restarts it
 over the same directories (``split``).
-Each phase prints one JSON line; any failure exits nonzero. Before the last line it prints
+Then the farm's read side: ``summary`` fills a held server's farm with the
+service run, writes every doc's summary from the card with
+``ServiceSummarizer.summarize_all`` (chunks held byte for byte against a
+CPU applier's), boots every doc from its summary through the port's
+``Loader``, lets real containers write a tail on 64 docs and runs an
+incremental pass; ``replay`` replays the three recorded docs of
+``tests/corpus`` through the farm on the card and through the client
+stack.
+Each phase prints one JSON line (the last one, each phase's seconds); any
+failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
 limit as ``nvidia-smi`` reports them; the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -886,6 +895,297 @@ def phase_split(cpu_texts: list, service_row: dict, power: str,
     emit(row)
 
 
+SUMMARY_STAGES = ("finalize", "readback_decode", "encode", "upload_commit")
+#: docs whose real containers write a tail between the summary passes
+SUMMARY_TAIL_DOCS = 64
+
+
+class _PassClock:
+    """Seconds of summary passes by stage, from wrappers installed on the
+    objects a pass calls (``with clock.installed(...)``): the applier's
+    ``finalize`` (the pass's fence and the one before each doc's read),
+    its ``get_tree`` less the fences inside it (readback and decode), the
+    replica's ``snapshot`` with the chunk encoder (encode), and the
+    storage's writes with scribe's commit (upload with commit). What a
+    pass spends elsewhere (the refusal gate's log scan) is its total less
+    these."""
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(SUMMARY_STAGES, 0.0)
+
+    def wrap(self, fn, stage: str):
+        def timed(*args, **kwargs):
+            t0, fenced = time.perf_counter(), self.seconds["finalize"]
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                if stage != "finalize":
+                    dt -= self.seconds["finalize"] - fenced
+                self.seconds[stage] += dt
+            if stage == "readback_decode":
+                out.snapshot = self.wrap(out.snapshot, "encode")
+            return out
+        return timed
+
+    def installed(self, server, applier):
+        import contextlib
+
+        from fluidframework_tpu_torch.protocol import snapcols
+
+        @contextlib.contextmanager
+        def scope():
+            encode = snapcols.encode_snapshot_chunks
+            storage = server.storage
+
+            def timed_storage(tenant, doc):
+                st = storage(tenant, doc)
+                st.write_blob = self.wrap(st.write_blob, "upload_commit")
+                st.upload_summary = self.wrap(st.upload_summary,
+                                              "upload_commit")
+                return st
+
+            scribes = [o.scribe for o in server._orderers.values()]
+            applier.finalize = self.wrap(applier.finalize, "finalize")
+            applier.get_tree = self.wrap(applier.get_tree, "readback_decode")
+            snapcols.encode_snapshot_chunks = self.wrap(encode, "encode")
+            server.storage = timed_storage
+            for s in scribes:
+                s.commit_version = self.wrap(s.commit_version,
+                                             "upload_commit")
+            try:
+                yield self
+            finally:
+                del applier.finalize, applier.get_tree, server.storage
+                snapcols.encode_snapshot_chunks = encode
+                for s in scribes:
+                    del s.commit_version
+        return scope()
+
+
+def _stored_chunks(server, tenant: str, doc: str) -> list:
+    """The chunk bytes of the doc's newest acked summary."""
+    storage = server.storage(tenant, doc)
+    root = json.loads(storage.read_blob(
+        storage.get_versions(1)[0]["tree_id"]).decode())
+    return [storage.read_blob(h) for h in root["chunks"]]
+
+
+def _summary_pass(svc, server, app, docs: list) -> dict:
+    """One ``summarize_all`` over every doc, timed by stage; fails on a
+    refusal, a skipped doc or an escalation."""
+    counts0 = svc.counters.snapshot()
+    clock = _PassClock()
+    with clock.installed(server, app):
+        t0 = time.perf_counter()
+        n = svc.summarize_all("bench", docs)
+        seconds = time.perf_counter() - t0
+    if svc.refusals:
+        fail(f"summary: {len(svc.refusals)} refusals, first "
+             f"{svc.refusals[0]}")
+    if n != len(docs):
+        fail(f"summary: {n} of {len(docs)} docs summarized")
+    if app.host_escalations:
+        fail(f"summary: {app.host_escalations} escalations")
+    counts = svc.counters.snapshot()
+    split = {f"{k}_seconds": v for k, v in clock.seconds.items()}
+    return {"docs": n, "seconds": seconds, "docs_per_sec": n / seconds,
+            **split, "other_seconds": seconds - sum(split.values()),
+            "chunks_written": counts.get("storage.snapshot.chunks_written", 0)
+            - counts0.get("storage.snapshot.chunks_written", 0),
+            "chunks_reused": counts.get("storage.snapshot.chunks_reused", 0)
+            - counts0.get("storage.snapshot.chunks_reused", 0)}
+
+
+def _write_tail(loader, docs: list, seed: int) -> dict:
+    """Real containers on ``docs`` (booted from the summary, connected)
+    write a few inserts, removes and annotates each. Returns {doc: the
+    container's text}."""
+    rng = random.Random(seed)
+    texts = {}
+    for doc in docs:
+        c = loader.resolve("bench", doc)
+        if c._base_snapshot is None:
+            fail(f"summary: the tail writer of {doc} did not boot from "
+                 "the summary")
+        s = c.runtime.get_data_store("default").get_channel("text")
+        for k in range(6):
+            n = len(s.get_text())
+            if k % 3 == 0 or n < 2:
+                s.insert_text(rng.randrange(n + 1), f"<tail{k}>")
+            elif k % 3 == 1:
+                a = rng.randrange(n)
+                s.remove_text(a, min(n, a + 1 + rng.randrange(3)))
+            else:
+                a = rng.randrange(n)
+                s.annotate_range(a, min(n, a + 4), {"tail": k})
+        texts[doc] = s.get_text()
+        c.close()
+    return texts
+
+
+def phase_summary(power: str, device: str = "cuda", run=None):
+    """The farm's read side at the service geometry. The service run
+    (``run_inproc_on`` a server this phase holds, the async card applier
+    riding the broadcast) fills the farm; ``ServiceSummarizer.
+    summarize_all`` writes every doc's summary from the card; every doc's
+    stored chunks must equal, byte for byte, those built from a CPU
+    applier fed the same channel stream; every doc boots through the
+    port's ``Loader`` from its summary and holds the CPU text. Real
+    containers on 64 docs then write a tail, which the card applier
+    ingests, and a second pass must reuse chunks and write fewer. Returns
+    B1's launches in the phase."""
+    from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.protocol import snapcols
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+        channel_stream,
+    )
+    from fluidframework_tpu_torch.service.load_gen import run_inproc_on
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+    from fluidframework_tpu_torch.service.service_summarizer import (
+        ServiceSummarizer,
+    )
+
+    run = dict(SERVICE_RUN, **(run or {}))
+    docs = [f"doc{d}" for d in range(run["n_docs"])]
+    server = LocalServer()
+    card = GpuDocumentApplier(device=device, async_dispatch=True,
+                              min_wave_ops=32768, **SERVICE_GEO)
+    cpu = GpuDocumentApplier(device="cpu", **SERVICE_GEO)
+    cpu.set_replay_source(lambda t, d: [])
+
+    def feed_cpu():
+        for doc in docs:
+            pairs = [(m, m.contents) for m in channel_stream(
+                server, "bench", doc, "default", "text",
+                from_seq=cpu.applied_seq("bench", doc))]
+            if pairs:
+                cpu.ingest_batch("bench", doc, pairs)
+        cpu.finalize()
+
+    def check_chunks(which: list, when: str) -> None:
+        bad = [d for d in which if _stored_chunks(server, "bench", d)
+               != snapcols.encode_snapshot_chunks(
+                   cpu.get_tree("bench", d).snapshot())]
+        if bad:
+            fail(f"summary: {when}: {len(bad)} docs' chunks differ from "
+                 f"the CPU applier's (first {bad[0]})")
+
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stats = run_inproc_on(server, applier=card, array_lane=True, **run)
+        feed_seconds = time.perf_counter() - t0
+        if stats.ops_acked != stats.ops_submitted or \
+                stats.applier_ops != stats.ops_submitted:
+            fail(f"summary: {stats.ops_acked} acked, {stats.applier_ops} "
+                 f"applied of {stats.ops_submitted}")
+        svc = ServiceSummarizer(server, card)
+        first = _summary_pass(svc, server, card, docs)
+
+        feed_cpu()
+        check_chunks(docs, "first pass")
+        loader = Loader(LocalDocumentServiceFactory(server))
+        t0 = time.perf_counter()
+        booted = [loader.resolve("bench", d, connect=False) for d in docs]
+        boot_seconds = time.perf_counter() - t0
+        bad = [d for d, c in zip(docs, booted) if c._base_snapshot is None
+               or c.runtime.get_data_store("default").get_channel("text")
+               .get_text() != cpu.get_text("bench", d)]
+        if bad:
+            fail(f"summary: {len(bad)} booted containers differ from the "
+                 f"CPU applier or did not boot from the summary (first "
+                 f"{bad[0]})")
+
+        tail_docs = docs[:SUMMARY_TAIL_DOCS]
+        tail_texts = _write_tail(loader, tail_docs, seed=31)
+        second = _summary_pass(svc, server, card, docs)
+        launches = cuda_apply.LAUNCHES
+        dispatches = card.dispatches
+    finally:
+        card.close()  # re-raises a worker exception: the phase fails
+    if launches != dispatches or launches == 0:
+        fail(f"summary: {launches} kernel launches for {dispatches} "
+             "dispatches")
+    feed_cpu()
+    check_chunks(tail_docs, "second pass")
+    bad = [d for d in tail_docs if tail_texts[d] != cpu.get_text("bench", d)
+           or card.get_text("bench", d) != tail_texts[d]]
+    if bad:
+        fail(f"summary: {len(bad)} tail docs differ between the writer, "
+             f"the card and the CPU (first {bad[0]})")
+    if not second["chunks_reused"] or \
+            second["chunks_written"] >= first["chunks_written"]:
+        fail(f"summary: the second pass reused {second['chunks_reused']} "
+             f"chunks and wrote {second['chunks_written']} (first pass "
+             f"{first['chunks_written']})")
+    row = {"phase": "summary", "docs": len(docs), "slots": card.max_slots,
+           "K": card.K, "feed_seconds": feed_seconds,
+           "ops": stats.ops_submitted,
+           "first_pass": first, "boot_seconds": boot_seconds,
+           "boot_docs_per_sec": len(docs) / boot_seconds,
+           "tail_docs": len(tail_docs), "second_pass": second,
+           "launches": launches, "dispatches": dispatches,
+           "host_escalations": 0, "refusals": 0,
+           "chunks_match_cpu": True, "card": power}
+    emit(row)
+    return launches, row
+
+
+def phase_replay(power: str, device: str = "cuda"):
+    """The replay tool on the three recorded docs of ``tests/corpus``:
+    ``replay_through_applier`` on the card (its default farm: S=512, so
+    B1's multi-warp path) must give each ``expect.json``'s final text, and
+    ``replay_and_compare`` (the client stack) its fingerprints. Returns
+    B1's launches."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.replay import (
+        replay_and_compare,
+        replay_through_applier,
+    )
+
+    corpus = os.path.join(HERE, "tests", "corpus", "corpus")
+    names = sorted(os.listdir(corpus))
+    if not names:
+        fail("replay: the corpus is empty")
+    expect = {}
+    for name in names:
+        with open(os.path.join(corpus, name, "expect.json")) as f:
+            expect[name] = json.load(f)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    cuda_apply.LAUNCHES = 0
+    t0 = time.perf_counter()
+    texts = {n: replay_through_applier(os.path.join(corpus, n),
+                                       device=device) for n in names}
+    applier_seconds = time.perf_counter() - t0
+    launches = cuda_apply.LAUNCHES
+    bad = [n for n in names if texts[n] != expect[n]["final_text"]]
+    if bad:
+        fail(f"replay: the farm's text of {bad} differs from expect.json")
+    if launches < len(names):
+        fail(f"replay: {launches} kernel launches for {len(names)} docs")
+    t0 = time.perf_counter()
+    problems = {n: replay_and_compare(os.path.join(corpus, n), expect[n])
+                for n in names}
+    stack_seconds = time.perf_counter() - t0
+    problems = {n: p for n, p in problems.items() if p}
+    if problems:
+        fail(f"replay: fingerprints differ from expect.json: {problems}")
+    row = {"phase": "replay", "docs": names,
+           "ops": {n: expect[n]["last_seq"] for n in names},
+           "applier_seconds": applier_seconds,
+           "client_stack_seconds": stack_seconds, "launches": launches,
+           "texts_match": True, "fingerprints_match": True, "card": power}
+    emit(row)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -922,13 +1222,27 @@ def main() -> None:
         phase_kernel("insert_overflow_s288", 47, 8, 288, 256, INSERT_MIX,
                      True),
     ]
-    launches = phase_main_path(power)
-    phase_escalation()
-    service_launches, app, cpu_texts, service_row = phase_service(name, power)
+    seconds = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            seconds[phase.__name__[len("phase_"):]] = \
+                time.perf_counter() - t0
+
+    launches = timed(phase_main_path, power)
+    timed(phase_escalation)
+    service_launches, app, cpu_texts, service_row = timed(
+        phase_service, name, power)
     launches += service_launches
-    launches += phase_checkpoint(app, power)
-    launches += phase_stage(cpu_texts, power)
-    phase_split(cpu_texts, service_row, power)
+    launches += timed(phase_checkpoint, app, power)
+    launches += timed(phase_stage, cpu_texts, power)
+    timed(phase_split, cpu_texts, service_row, power)
+    launches += timed(phase_summary, power)[0]
+    launches += timed(phase_replay, power)
+    emit({"phase": "seconds", **seconds})
 
     main_row = rows[0]  # the main path's shape: D=1024, S=256, K=32
     print(json.dumps({"kernels": [{

@@ -17,6 +17,11 @@ CUDA stream. The farm checkpoints in the JAX package's format
 (``service.gpu_applier.save_applier_checkpoint``), the log can be durable
 (``service.durable_log.DurableLog`` over the C++ op log in
 ``csrc/oplog.cpp``), and ``service.stage_runner.ApplierStage`` runs the
-farm in a process of its own that tails such a log. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+farm in a process of its own that tails such a log. The farm's read side
+is ported too: ``service.service_summarizer.ServiceSummarizer`` writes
+summaries from the farm into the server's storage, the client stack
+(``loader``, ``runtime``, ``dds``, ``driver``) boots from them, and
+``replay`` replays recorded documents through the client stack and the
+farm. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """

@@ -1,8 +1,8 @@
 """Configuration registry of the port.
 
 JAX counterpart: ``fluidframework_tpu/config.py::Config``. This is a copy
-of the fields that the port's service pipeline and replica farm read,
-with the same defaults and the same environment layer
+of the fields that the port's service pipeline, replica farm and client
+stack read, with the same defaults and the same environment layer
 (``FLUID_TPU_<FIELD>``, so one deployment setting drives both packages).
 A config resolves by layering defaults ← explicit overrides ←
 environment.
@@ -19,7 +19,7 @@ ENV_PREFIX = "FLUID_TPU_"
 
 @dataclass
 class Config:
-    """The port's tunables, server side, in one place."""
+    """The port's tunables, server and client, in one place."""
 
     # ---- service: deli sequencer (ref: deli/lambdaFactory.ts:29-37)
     client_timeout_s: float = 300.0      # idle-client eviction
@@ -34,6 +34,10 @@ class Config:
     # card. Off = fence each wave before staging the next (the serialized
     # behavior, kept for A/B).
     applier_overlap: bool = True
+    # ---- client: summarizer heuristics (ref: summarizer.ts:232)
+    summary_max_ops: int = 100           # ops since last ack → attempt
+    # ---- DDS: merge-tree snapshot chunking (ref: snapshotV1.ts:87)
+    summary_chunk_segments: int = 256    # segments per summary chunk blob
     # ---- service: log retention margin kept BELOW an acked summary's
     # capture seq (ops older than that truncate from scriptorium; a
     # client disconnected past the window reloads from the summary).

@@ -4,6 +4,9 @@ JAX counterpart: ``fluidframework_tpu/service/load_gen.py``; the port's
 copy of ``LoadStats``, ``wire_applier`` and ``run_inproc``, imports
 rebased to this package. ``run_network`` (socket clients against a
 network front end) waits for the front end's port (ROADMAP A4).
+``run_inproc_on`` is the port's own: ``run_inproc`` on a server the
+caller holds, so that what the run leaves (the doc's storage, its
+orderers) can be summarised and booted from afterwards.
 
 Ref: packages/test/service-load-test/src/nodeStressTest.ts + README.md:5-30
 — an orchestrator driving N synthetic SharedString clients against a live
@@ -128,11 +131,31 @@ def run_inproc(
     pass one to read the sequenced stream (its ``deltas/...`` topics)
     after the run.
     """
+    return run_inproc_on(
+        LocalServer(log=log), n_docs=n_docs, clients_per_doc=clients_per_doc,
+        ops_per_client=ops_per_client, seed=seed, applier=applier,
+        flush_every=flush_every, tenant=tenant, batch_size=batch_size,
+        array_lane=array_lane)
+
+
+def run_inproc_on(
+    server: LocalServer,
+    n_docs: int = 64,
+    clients_per_doc: int = 2,
+    ops_per_client: int = 50,
+    seed: int = 0,
+    applier=None,
+    flush_every: int = 256,
+    tenant: str = "bench",
+    batch_size: int = 1,
+    array_lane: bool = False,
+) -> LoadStats:
+    """``run_inproc`` on ``server``: the same clients, ops and applier
+    wiring; the sessions stay connected when it returns."""
     if ops_per_client % batch_size:
         raise ValueError(f"ops_per_client={ops_per_client} is not a "
                          f"multiple of batch_size={batch_size}")
     rng = random.Random(seed)
-    server = LocalServer(log=log)
     docs = [f"doc{i}" for i in range(n_docs)]
     stats = LoadStats()
 

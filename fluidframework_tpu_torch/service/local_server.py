@@ -5,7 +5,8 @@ port's copy of the in-process constructor path (``LocalServer(...)`` →
 ``connect`` → ``submit``/``submit_array``), imports rebased to this
 package. Options that the port does not carry yet raise
 ``NotImplementedError`` naming ROADMAP A4: ``storage_dir`` and
-``storage_server`` (native chunk store, storage process), ``tenants``
+``storage_server`` (native chunk store, storage process; ``storage``
+serves the in-process ``driver/local.LocalStorage`` only), ``tenants``
 (token validation), ``external_scribe``, the history plane, lazy boot
 with its rehydrator, and the placement epoch fence. The placement plane's
 seal, revoke and lease hooks come with the sharded core.
@@ -203,6 +204,9 @@ class LocalServer:
         self.pubsub = PubSub()
         # content-addressed blob store, db-backed
         self.blob_store = DbBlobStore(self.db)
+        # summary-upload accounting (handle reuse), per server
+        self.storage_stats = {"handles_reused": 0, "trees_written": 0,
+                              "blobs_written": 0}
         self._orderers: dict[str, LocalOrderer] = {}
         self._auto_drain = auto_drain
         self._clock = clock
@@ -304,6 +308,13 @@ class LocalServer:
         # must not contribute to the msn
         self._maybe_drain()
         return conn
+
+    def storage(self, tenant_id: str, document_id: str):
+        """The doc's storage binding, the in-process store. Every storage
+        consumer (summarizer, drivers) goes through here."""
+        from ..driver.local import LocalStorage
+
+        return LocalStorage(self, tenant_id, document_id)
 
     def get_deltas(
         self, tenant_id: str, document_id: str, from_seq: int, to_seq: int

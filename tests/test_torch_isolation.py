@@ -44,6 +44,21 @@ def _imports(path: Path) -> list:
     return names
 
 
+#: the read side of the farm (summaries, the client stack that boots from
+#: them, the replay tool): host modules copied from the JAX package
+READ_SIDE = ("protocol/snapcols.py", "protocol/summary.py",
+             "service/summary_trees.py", "service/service_summarizer.py",
+             "driver/definitions.py", "driver/local.py", "driver/file.py",
+             "dds/string.py", "dds/map.py", "runtime/container_runtime.py",
+             "runtime/summarizer.py", "loader/container.py",
+             "loader/delta_manager.py", "replay/tool.py")
+
+
+def test_sources_cover_the_read_side():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(READ_SIDE)
+
+
 def test_forbidden_names_match_exactly():
     assert _forbidden("jax.numpy") and _forbidden("fluidframework_tpu.ops")
     assert _forbidden("fluidframework_tpu")
