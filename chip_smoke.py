@@ -25,7 +25,12 @@ service run, writes every doc's summary from the card with
 ``ServiceSummarizer.summarize_all`` (chunks held byte for byte against a
 CPU applier's), boots every doc from its summary through the port's
 ``Loader``, lets real containers write a tail on 64 docs and runs an
-incremental pass; ``replay`` replays the three recorded docs of
+incremental pass; ``history`` goes on with that server and its open card
+applier: the history plane's commit graph of every doc, time travel,
+forks of 64 docs inside their tail, edits on the forks integrated back
+into the parents (B1 applies them on the card), a third pass and chunk
+GC; ``soak`` runs chaos soak phase A at seeds 0, 7 and 42 with its
+device stage on the card; ``replay`` replays the three recorded docs of
 ``tests/corpus`` through the farm on the card and through the client
 stack.
 Each phase prints one JSON line (the last one, each phase's seconds); any
@@ -46,6 +51,7 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1034,7 +1040,10 @@ def phase_summary(power: str, device: str = "cuda", run=None):
     port's ``Loader`` from its summary and holds the CPU text. Real
     containers on 64 docs then write a tail, which the card applier
     ingests, and a second pass must reuse chunks and write fewer. Returns
-    B1's launches in the phase."""
+    B1's launches in the phase, its row, and what the ``history`` phase
+    goes on with: the held server, its summarizer and loader, the CPU
+    applier and the card applier, still open (the caller closes it; this
+    phase closes it only when it fails)."""
     from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
     from fluidframework_tpu_torch.loader import Loader
     from fluidframework_tpu_torch.ops import cuda_apply
@@ -1105,22 +1114,26 @@ def phase_summary(power: str, device: str = "cuda", run=None):
         tail_docs = docs[:SUMMARY_TAIL_DOCS]
         tail_texts = _write_tail(loader, tail_docs, seed=31)
         second = _summary_pass(svc, server, card, docs)
+        card.finalize()  # re-raises a worker exception: the phase fails
         launches = cuda_apply.LAUNCHES
         dispatches = card.dispatches
-    finally:
-        card.close()  # re-raises a worker exception: the phase fails
-    if launches != dispatches or launches == 0:
-        fail(f"summary: {launches} kernel launches for {dispatches} "
-             "dispatches")
-    feed_cpu()
-    check_chunks(tail_docs, "second pass")
-    bad = [d for d in tail_docs if tail_texts[d] != cpu.get_text("bench", d)
-           or card.get_text("bench", d) != tail_texts[d]]
-    if bad:
-        fail(f"summary: {len(bad)} tail docs differ between the writer, "
-             f"the card and the CPU (first {bad[0]})")
+        if launches != dispatches or launches == 0:
+            fail(f"summary: {launches} kernel launches for {dispatches} "
+                 "dispatches")
+        feed_cpu()
+        check_chunks(tail_docs, "second pass")
+        bad = [d for d in tail_docs
+               if tail_texts[d] != cpu.get_text("bench", d)
+               or card.get_text("bench", d) != tail_texts[d]]
+        if bad:
+            fail(f"summary: {len(bad)} tail docs differ between the writer, "
+                 f"the card and the CPU (first {bad[0]})")
+    except BaseException:
+        card.close()
+        raise
     if not second["chunks_reused"] or \
             second["chunks_written"] >= first["chunks_written"]:
+        card.close()
         fail(f"summary: the second pass reused {second['chunks_reused']} "
              f"chunks and wrote {second['chunks_written']} (first pass "
              f"{first['chunks_written']})")
@@ -1134,7 +1147,271 @@ def phase_summary(power: str, device: str = "cuda", run=None):
            "host_escalations": 0, "refusals": 0,
            "chunks_match_cpu": True, "card": power}
     emit(row)
-    return launches, row
+    held = SimpleNamespace(server=server, card=card, cpu=cpu, svc=svc,
+                           loader=loader, docs=docs, tail_docs=tail_docs,
+                           feed_cpu=feed_cpu)
+    return launches, row, held
+
+
+#: fork edits a doc: inserts at positions both the fork's and the parent's
+#: head text hold, and an annotate
+FORK_INSERTS = 3
+
+
+def _text(container) -> str:
+    return container.runtime.get_data_store("default").get_channel(
+        "text").get_text()
+
+
+def _closed(container):
+    """A booted container (snapshot plus the backfilled tail), closed."""
+    container.close()
+    return container
+
+
+def _cpu_texts_at(server, seqs: dict) -> dict:
+    """{doc: text} of a CPU applier fed each doc's channel stream up to
+    and including ``seqs[doc]``."""
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+        channel_stream,
+    )
+
+    ref = GpuDocumentApplier(device="cpu", **dict(SERVICE_GEO,
+                                                  max_docs=len(seqs)))
+    ref.set_replay_source(lambda t, d: [])
+    for doc, seq in seqs.items():
+        pairs = [(m, m.contents) for m in channel_stream(
+            server, "bench", doc, "default", "text")
+            if m.sequence_number <= seq]
+        if pairs:
+            ref.ingest_batch("bench", doc, pairs)
+    ref.finalize()
+    return {doc: ref.get_text("bench", doc) for doc in seqs}
+
+
+def _fork_edits(loader, fork: str, boot_text: str, bound: int, rng) -> tuple:
+    """A real container on ``fork``, which must boot from the fork's v0
+    with ``boot_text``, inserts FORK_INSERTS markers at positions below
+    ``bound`` and annotates a range; returns (the fork's text, the
+    inserts as (position, text))."""
+    c = loader.resolve("bench", fork)
+    if c._base_snapshot is None or _text(c) != boot_text:
+        fail(f"history: the fork {fork} did not boot from its v0 with its "
+             f"parent's text at the fork seq")
+    s = c.runtime.get_data_store("default").get_channel("text")
+    inserts = []
+    for k in range(FORK_INSERTS):
+        pos, ins = rng.randrange(bound + 1), f"<fork{k}>"
+        s.insert_text(pos, ins)
+        inserts.append((pos, ins))
+    a = rng.randrange(max(bound - 1, 1))
+    s.annotate_range(a, min(a + 2, len(s.get_text())), {"fork": 1})
+    text = s.get_text()
+    c.close()
+    return text, inserts
+
+
+def phase_history(held, power: str, device: str = "cuda"):
+    """The doc history plane over the summary phase's held server and its
+    open card applier (1024 docs, two passes). Every doc's ``history.log``
+    holds the two passes' commits, chained, each naming the chunks its
+    version's root record lists, ``refs/main`` at the second. For the 64
+    tail docs: ``Loader.resolve_at`` at the first pass's base, inside the
+    tail and at the head gives the text of a CPU applier fed the channel
+    stream up to that seq; a fork inside the tail (an explicit name)
+    copies no blob and boots through ``Loader.resolve`` with the parent's
+    text there; real containers edit each fork, ``integrate`` replays
+    the edits into the parent, and the card applier, the CPU applier and
+    a fresh boot of the parent agree with the parent's head text plus
+    the fork's inserts. A third pass over the 64 parents adds a commit a
+    doc, and ``gc_chunks`` keeps every chunk a branch head or a fork pin
+    names and sweeps exactly the superseded ones; forks and parents boot
+    after it. Returns B1's launches in the phase."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.service.core import (
+        summary_versions_collection,
+    )
+    from fluidframework_tpu_torch.service.history_plane import MAIN_REF
+
+    server, card, loader = held.server, held.card, held.loader
+    plane = server.history
+    docs, tail_docs = held.docs, held.tail_docs
+    if device == "cuda":
+        torch.cuda.synchronize()
+    cuda_apply.LAUNCHES = 0
+    dispatched = card.dispatches
+
+    t0 = time.perf_counter()
+    first_base = {}
+    for doc in docs:
+        log = plane.log("bench", doc)
+        if len(log) != 2 or log[0]["parents"] != [log[1]["id"]] \
+                or log[1]["parents"] != [] \
+                or plane.refs("bench", doc) != {MAIN_REF: log[0]["id"]}:
+            fail(f"history: {doc}'s commits are not the two passes "
+                 f"chained under {MAIN_REF}: {log}")
+        for c in log:
+            rec = server.db.find_one(
+                summary_versions_collection("bench", doc), c["version"])
+            root = json.loads(server.blob_store.get(rec["tree_id"]))
+            if root["chunks"] != c["chunk_ids"] or \
+                    root["sequence_number"] != c["base_seq"]:
+                fail(f"history: {doc}'s commit {c['id']} does not name "
+                     f"the chunks of {c['version']}")
+        first_base[doc] = log[1]["base_seq"]
+    graph_seconds = time.perf_counter() - t0
+
+    heads = {d: server._get_orderer("bench", d).deli.sequence_number
+             for d in tail_docs}
+    points = {"base": {d: first_base[d] for d in tail_docs},
+              "mid": {d: (first_base[d] + heads[d]) // 2
+                      for d in tail_docs},
+              "head": heads}
+    if any(not first_base[d] < points["mid"][d] < heads[d]
+           for d in tail_docs):
+        fail("history: a tail doc's tail is too short to travel into")
+    want = {name: _cpu_texts_at(server, seqs)
+            for name, seqs in points.items()}
+    t0 = time.perf_counter()
+    for name, seqs in points.items():
+        for doc in tail_docs:
+            c = loader.resolve_at("bench", doc, seqs[doc])
+            if _text(c) != want[name][doc] or not c.readonly:
+                fail(f"history: {doc} at its {name} seq {seqs[doc]} "
+                     "differs from the CPU applier")
+    travel_seconds = time.perf_counter() - t0
+
+    blobs = len(server.db.collection("blobs"))
+    t0 = time.perf_counter()
+    forks = {d: plane.fork("bench", d, at_seq=points["mid"][d],
+                           new_doc=f"{d}-fork") for d in tail_docs}
+    fork_seconds = time.perf_counter() - t0
+    if len(server.db.collection("blobs")) != blobs or \
+            any(f["shared_chunks"] <= 0 for f in forks.values()):
+        fail("history: a fork copied blobs or shares no chunk")
+    rng = random.Random(41)
+    fork_texts, expect = {}, {}
+    for doc in tail_docs:
+        bound = min(len(want["mid"][doc]), len(want["head"][doc]))
+        fork_texts[doc], inserts = _fork_edits(
+            loader, f"{doc}-fork", want["mid"][doc], bound, rng)
+        text = want["head"][doc]
+        for pos, ins in inserts:
+            text = text[:pos] + ins + text[pos:]
+        expect[doc] = text
+
+    t0 = time.perf_counter()
+    integrated = sum(plane.integrate("bench", f"{d}-fork")["ops"]
+                     for d in tail_docs)
+    integrate_seconds = time.perf_counter() - t0
+    if integrated != len(tail_docs) * (FORK_INSERTS + 1):
+        fail(f"history: integrate replayed {integrated} ops")
+    held.feed_cpu()
+    for doc in tail_docs:
+        got = {"card": card.get_text("bench", doc),
+               "cpu": held.cpu.get_text("bench", doc),
+               "boot": _text(_closed(loader.resolve("bench", doc)))}
+        if set(got.values()) != {expect[doc]}:
+            fail(f"history: after integrate {doc} reads {got}, want "
+                 f"{expect[doc]!r}")
+
+    third = _summary_pass(held.svc, server, card, tail_docs)
+    card.finalize()
+    launches = cuda_apply.LAUNCHES
+    dispatches = card.dispatches - dispatched
+    if launches != dispatches or launches == 0:
+        fail(f"history: {launches} kernel launches for {dispatches} "
+             "dispatches")
+    live, named = set(), set()
+    every = docs + [f"{d}-fork" for d in tail_docs]
+    commits = 0
+    for doc in every:
+        log = {c["id"]: c for c in plane.log("bench", doc)}
+        commits += len(log)
+        for c in log.values():
+            named.update(c["chunk_ids"])
+        for cid in plane.refs("bench", doc).values():
+            # a fork pin on a parent names the parent's own commit
+            live.update(log[cid]["chunk_ids"])
+    if commits != 2 * len(docs) + 2 * len(tail_docs):
+        fail(f"history: {commits} commits recorded")
+    t0 = time.perf_counter()
+    gc = plane.gc_chunks("bench")
+    gc_seconds = time.perf_counter() - t0
+    dead = named - live
+    store = server.blob_store
+    if not dead or gc["deleted"] != len(dead) \
+            or any(store.has(c) for c in dead) \
+            or not all(store.has(c) for c in live):
+        fail(f"history: gc {gc} against {len(dead)} superseded chunks "
+             f"and {len(live)} live ones")
+    for doc in tail_docs:
+        if _text(_closed(loader.resolve("bench", f"{doc}-fork"))) \
+                != fork_texts[doc] or \
+                _text(_closed(loader.resolve("bench", doc))) != expect[doc]:
+            fail(f"history: {doc} or its fork does not boot after gc")
+    row = {"phase": "history", "docs": len(docs),
+           "tail_docs": len(tail_docs), "commits": commits,
+           "graph_check_seconds": graph_seconds,
+           "time_travel_boots": 3 * len(tail_docs),
+           "time_travel_seconds": travel_seconds,
+           "forks": len(forks), "fork_seconds": fork_seconds,
+           "fork_tail_ops": sum(f["tail_ops"] for f in forks.values()),
+           "shared_chunks": sum(f["shared_chunks"] for f in forks.values()),
+           "integrate_ops": integrated,
+           "integrate_seconds": integrate_seconds, "third_pass": third,
+           "gc": gc, "gc_seconds": gc_seconds, "chunks_swept": gc["deleted"],
+           "chunks_kept": len(live), "launches": launches,
+           "dispatches": dispatches, "texts_match": ["card", "cpu", "boot"],
+           "card": power}
+    emit(row)
+    return launches
+
+
+SOAK_SEEDS = (0, 7, 42)
+
+
+def phase_soak(power: str, device: str = "cuda"):
+    """Chaos soak phase A (quick) at seeds 0, 7 and 42 with the device
+    stage's applier on ``device``: each run must end green, cover every
+    class phase A injects and show a recovery for each injected fault
+    (``run_soak`` raises otherwise), and launch B1. Returns B1's
+    launches over the three runs."""
+    from fluidframework_tpu_torch.chaos.soak import (
+        BOUNDARY_REQUIRED,
+        run_soak,
+    )
+    from fluidframework_tpu_torch.ops import cuda_apply
+
+    runs, total = [], 0
+    for seed in SOAK_SEEDS:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = run_soak(seed, quick=True, phases="a", device=device)
+        seconds = time.perf_counter() - t0
+        launches = cuda_apply.LAUNCHES
+        missing = set(BOUNDARY_REQUIRED) - set(out["coverage"])
+        if missing or launches == 0:
+            fail(f"soak seed {seed}: classes {sorted(missing)} not "
+                 f"covered, {launches} kernel launches")
+        counters = out["counters"]
+        runs.append({"seed": seed, "coverage": out["coverage"],
+                     "observed": out["observed"],
+                     "redelivered": out["redelivered"],
+                     "injected": {k[len("chaos.injected."):]: v
+                                  for k, v in counters.items()
+                                  if k.startswith("chaos.injected.")},
+                     "recovered": {k[len("chaos.recovered."):]: v
+                                   for k, v in counters.items()
+                                   if k.startswith("chaos.recovered.")},
+                     "launches": launches, "seconds": seconds})
+        total += launches
+    emit({"phase": "soak", "runs": runs, "launches": total,
+          "card": power})
+    return total
 
 
 def phase_replay(power: str, device: str = "cuda"):
@@ -1240,7 +1517,13 @@ def main() -> None:
     launches += timed(phase_checkpoint, app, power)
     launches += timed(phase_stage, cpu_texts, power)
     timed(phase_split, cpu_texts, service_row, power)
-    launches += timed(phase_summary, power)[0]
+    summary_launches, _, held = timed(phase_summary, power)
+    launches += summary_launches
+    try:
+        launches += timed(phase_history, held, power)
+    finally:
+        held.card.close()  # re-raises a worker exception: the run fails
+    launches += timed(phase_soak, power)
     launches += timed(phase_replay, power)
     emit({"phase": "seconds", **seconds})
 

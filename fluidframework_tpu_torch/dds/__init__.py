@@ -6,7 +6,7 @@ SharedMap, the channels of the documents the replica farm summarises and
 the replay corpus records. Importing this package registers both channel
 types. The other DDSes of the JAX package (cell, counter, directory,
 consensus collections, ink, matrix, sequences) are not ported yet
-(ROADMAP A9).
+(ROADMAP A10).
 
 Ref: packages/dds (SURVEY §2.2) — every DDS is a deterministic state
 machine over (snapshot, sequenced op stream) implementing the SharedObject

@@ -10,8 +10,9 @@ A document service exposes three sub-services (driver-definitions):
 
 ``local`` binds them straight to an in-proc LocalServer (the local-driver
 test backbone, packages/drivers/local-driver); ``file`` serves a recorded
-document read-only (the replay tool's driver). The network driver and the
-history client are not ported yet (ROADMAP A4).
+document read-only (the replay tool's driver); ``history`` is the local
+history client over the doc history plane. The network driver and its
+history client are not ported yet (ROADMAP A8).
 """
 
 from .definitions import (

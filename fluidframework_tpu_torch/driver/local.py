@@ -1,9 +1,7 @@
 """Local driver: client stack ⇄ in-proc LocalServer, no network.
 
 JAX counterpart: ``fluidframework_tpu/driver/local.py``; the port's copy,
-imports rebased to this package. ``LocalDocumentService.history()``
-raises ``NotImplementedError``: the history plane is not ported yet, so
-the replay tool takes its whole-log path for local documents too.
+imports rebased to this package.
 
 Ref: packages/drivers/local-driver (localDocumentService.ts,
 localDocumentDeltaConnection.ts) — the test backbone binding the REAL
@@ -211,9 +209,9 @@ class LocalDocumentService(DocumentService):
         return self._server.storage(self._tenant, self._doc)
 
     def history(self):
-        raise NotImplementedError(
-            "LocalDocumentService has no history surface: the history plane "
-            "is not ported to fluidframework_tpu_torch yet (ROADMAP A4)")
+        from .history import LocalHistoryClient
+
+        return LocalHistoryClient(self._server, self._tenant, self._doc)
 
 
 class LocalDocumentServiceFactory(DocumentServiceFactory):

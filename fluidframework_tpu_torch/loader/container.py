@@ -1,9 +1,7 @@
 """Container: one client's live replica of one document.
 
 JAX counterpart: ``fluidframework_tpu/loader/container.py``; the port's
-copy, imports rebased to this package. ``Loader.resolve_at`` (the
-point-in-time read through the history plane) raises until that plane is
-ported (ROADMAP A4).
+copy, imports rebased to this package.
 
 Ref: loader/container-loader/src/container.ts — boot (:931): fetch latest
 summary version → load protocol state (:1116, the client-side quorum
@@ -305,12 +303,16 @@ class Loader:
 
     def resolve_at(self, tenant_id: str, document_id: str,
                    seq: int) -> Container:
-        """Resolve a POINT-IN-TIME read. The JAX package boots it from
-        the history plane (``loader/history_boot.py``), which the port
-        does not have yet."""
-        raise NotImplementedError(
-            "Loader.resolve_at needs the history plane, which is not ported "
-            "to fluidframework_tpu_torch yet (ROADMAP A4)")
+        """Resolve a POINT-IN-TIME read: a read-only offline container
+        of the doc as of ``seq``, booted from the nearest committed
+        summary at or below it plus a bounded history-backed tail
+        backfill (see loader/history_boot.py)."""
+        from .history_boot import open_at
+
+        service = self._factory.create_document_service(tenant_id,
+                                                        document_id)
+        return open_at(service.history(), seq,
+                       runtime_factory=self._runtime_factory)
 
     def create_detached(self, tenant_id: str, document_id: str) -> Container:
         """A container that lives entirely client-side until ``attach()``

@@ -3,7 +3,7 @@
 JAX counterpart: ``fluidframework_tpu/native``. The port carries the
 durable op log (``oplog``: ``csrc/oplog.cpp``, the librdkafka-role
 component), built with g++ at first use by ``build``. The chunk store
-waits for the storage tier (ROADMAP A4).
+waits for the storage tier (ROADMAP A9).
 """
 
 from .build import load_library

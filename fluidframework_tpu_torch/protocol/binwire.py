@@ -2,7 +2,7 @@
 
 JAX counterpart: ``fluidframework_tpu/protocol/binwire.py``; the port's
 copy, imports rebased to this package, without the FT_HISTORY commit
-frames (they wait for the history plane, ROADMAP A4). The durable log
+frames (they come with the network history doors, ROADMAP A8). The durable log
 uses its columnar section (``encode_cols``, ``_read_cols``,
 ``encode_seg_block``, ``read_seg_block``, ``SEG_COLS``, ``SEG_JSON``);
 the network tier will use the rest.

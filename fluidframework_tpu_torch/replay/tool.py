@@ -4,10 +4,10 @@ farm, asserting byte-identical state fingerprints across versions.
 JAX counterpart: ``fluidframework_tpu/replay/tool.py``; the port's copy,
 imports rebased to this package. ``replay_through_applier`` feeds the
 port's ``GpuDocumentApplier``, on ``cuda`` unless given ``device="cpu"``.
-No driver of the port has a history surface yet (ROADMAP A4), so every
-replay takes the legacy whole-log path, and ``main`` replays file-driver
-document directories only (the JAX tool's ``--port`` replays a live doc
-through the network driver).
+``ReplayController`` boots history-first from the local driver's history
+surface; ``main`` replays file-driver document directories only (the JAX
+tool's ``--port`` replays a live doc through the network driver, ROADMAP
+A8).
 
 Ref: replay-tool/src/replayMessages.ts (drives loader+runtime over the
 replay driver, snapshotting at intervals) and

@@ -221,7 +221,7 @@ class DeliLambda:
 
     def handler(self, message: QueuedMessage) -> None:
         # idempotent replay after restart (ref: deli/lambda.ts:173). The
-        # JAX package's placement epoch fence is not ported (ROADMAP A4).
+        # JAX package's placement epoch fence is not ported (ROADMAP A10).
         if message.offset <= self.log_offset:
             return
         self.log_offset = message.offset

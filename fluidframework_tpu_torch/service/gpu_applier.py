@@ -1,7 +1,7 @@
 """GpuDocumentApplier: the batched server-side merge-tree replica farm.
 
 JAX counterpart: ``fluidframework_tpu/service/tpu_applier.py::
-TpuDocumentApplier`` without its mesh lane (ROADMAP A7), with
+TpuDocumentApplier`` without its mesh lane (ROADMAP A6), with
 ``save_applier_checkpoint`` / ``load_applier_checkpoint`` writing and
 reading the JAX package's checkpoint format byte for byte.
 The service keeps thousands of documents as ONE device-resident

@@ -3,7 +3,7 @@
 JAX counterpart: ``fluidframework_tpu/service/load_gen.py``; the port's
 copy of ``LoadStats``, ``wire_applier`` and ``run_inproc``, imports
 rebased to this package. ``run_network`` (socket clients against a
-network front end) waits for the front end's port (ROADMAP A4).
+network front end) waits for the front end's port (ROADMAP A8).
 ``run_inproc_on`` is the port's own: ``run_inproc`` on a server the
 caller holds, so that what the run leaves (the doc's storage, its
 orderers) can be summarised and booted from afterwards.

@@ -3,8 +3,9 @@
 JAX counterpart: ``fluidframework_tpu/service/local_orderer.py``; the
 port's copy, imports rebased to this package. Lazy cold boot (and with it
 the canary tenant's boot counters), the external scribe and the storage
-process's ref hook are not ported yet (ROADMAP A4): the orderer always
-replays its topics from the start, with scribe in-process.
+process's ref hook are not ported yet (lazy boot ROADMAP A10, the scribe
+stage and the storage process A9): the orderer always replays its topics
+from the start, with scribe in-process.
 
 Ref: memory-orderer/src/localOrderer.ts:88,228-270 — wires actual
 Deli/Broadcaster/Scriptorium/Scribe instances over LocalKafka queues, so
@@ -37,9 +38,13 @@ def restore_version_records(log, db, tenant_id: str,
                             document_id: str) -> None:
     """Rebuild acked summary-version records from the durable versions
     topic. After full process death the db is gone, and without these the
-    summary chain (and, with retention, the doc) is unreachable."""
+    summary chain (and, with retention, the doc) is unreachable. An
+    unreadable topic boots the doc without those records."""
     topic = _versions_topic(tenant_id, document_id)
-    n = log.length(topic)
+    try:
+        n = log.length(topic)
+    except Exception:
+        return
     if n <= 0:
         return
     col = summary_versions_collection(tenant_id, document_id)
@@ -57,10 +62,14 @@ def _checkpoint_topic(tenant_id: str, document_id: str) -> str:
 
 def _latest_log_checkpoint(log, tenant_id: str, document_id: str):
     """Newest checkpoint record for a doc from its checkpoint topic — the
-    recovery source when the db died with the process."""
+    recovery source when the db died with the process. None when the
+    topic is empty or unreadable."""
     topic = _checkpoint_topic(tenant_id, document_id)
-    n = log.length(topic)
-    return log.read(topic, n - 1) if n > 0 else None
+    try:
+        n = log.length(topic)
+        return log.read(topic, n - 1) if n > 0 else None
+    except Exception:
+        return None
 
 
 class LocalOrderer:

@@ -4,12 +4,13 @@ JAX counterpart: ``fluidframework_tpu/service/local_server.py``; the
 port's copy of the in-process constructor path (``LocalServer(...)`` →
 ``connect`` → ``submit``/``submit_array``), imports rebased to this
 package. Options that the port does not carry yet raise
-``NotImplementedError`` naming ROADMAP A4: ``storage_dir`` and
-``storage_server`` (native chunk store, storage process; ``storage``
-serves the in-process ``driver/local.LocalStorage`` only), ``tenants``
-(token validation), ``external_scribe``, the history plane, lazy boot
-with its rehydrator, and the placement epoch fence. The placement plane's
-seal, revoke and lease hooks come with the sharded core.
+``NotImplementedError`` naming their ROADMAP item: ``storage_dir``,
+``storage_server`` and ``external_scribe`` (the native chunk store, the
+storage process and the scribe stage's ref hook, A9; ``storage`` serves
+the in-process ``driver/local.LocalStorage`` only), ``tenants`` (token
+validation), lazy boot with its rehydrator, and the placement epoch fence
+(A10). The placement plane's seal, revoke and lease hooks come with the
+sharded core (A10). The history plane (``history``) is the JAX package's.
 
 Ref: local-server/src/localDeltaConnectionServer.ts:59-118 (the test
 backbone) and server/tinylicious (the single-process deployment). The
@@ -51,10 +52,10 @@ from .local_orderer import LocalOrderer
 from .scriptorium import LogTruncatedError
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"LocalServer {what} is not ported to fluidframework_tpu_torch yet "
-        "(ROADMAP A4)")
+        f"(ROADMAP {item})")
 
 
 class ServerConnection:
@@ -182,12 +183,12 @@ class LocalServer:
         external_scribe: bool = False,
         storage_server=None,
     ):
-        for name, value in (("storage_dir", storage_dir),
-                            ("tenants", tenants),
-                            ("external_scribe", external_scribe),
-                            ("storage_server", storage_server)):
+        for name, value, item in (("storage_dir", storage_dir, "A9"),
+                                  ("tenants", tenants, "A10"),
+                                  ("external_scribe", external_scribe, "A9"),
+                                  ("storage_server", storage_server, "A9")):
             if value:
-                raise _not_ported(f"option {name}")
+                raise _not_ported(f"option {name}", item)
         # unified config registry (SURVEY §5.6): explicit args still win
         self.config = config if config is not None else DEFAULT
         if client_timeout is None:
@@ -204,6 +205,10 @@ class LocalServer:
         self.pubsub = PubSub()
         # content-addressed blob store, db-backed
         self.blob_store = DbBlobStore(self.db)
+        # doc history plane (commit/ref graph over snapshot generations):
+        # constructed on first use — the summarizer's commit hook, the
+        # history doors, and chunk GC all go through it
+        self._history = None
         # summary-upload accounting (handle reuse), per server
         self.storage_stats = {"handles_reused": 0, "trees_written": 0,
                               "blobs_written": 0}
@@ -217,11 +222,17 @@ class LocalServer:
         self._client_epoch = uuid.uuid4().hex[:6]
         self._client_counter = itertools.count(1)
 
-    # ------------------------------------------- options not ported yet
-
     @property
     def history(self):
-        raise _not_ported("history plane")
+        """The doc history plane (service/history_plane.py): commit/ref
+        graph, fork, point-in-time replay, integrate, chunk GC."""
+        if self._history is None:
+            from .history_plane import HistoryPlane
+
+            self._history = HistoryPlane(self)
+        return self._history
+
+    # ------------------------------------------- options not ported yet
 
     @property
     def epoch_fence(self):
@@ -230,7 +241,7 @@ class LocalServer:
     @epoch_fence.setter
     def epoch_fence(self, fence) -> None:
         if fence is not None:
-            raise _not_ported("placement epoch fence")
+            raise _not_ported("placement epoch fence", "A10")
 
     @property
     def lazy_boot(self) -> bool:
@@ -239,7 +250,7 @@ class LocalServer:
     @lazy_boot.setter
     def lazy_boot(self, on: bool) -> None:
         if on:
-            raise _not_ported("lazy boot")
+            raise _not_ported("lazy boot", "A10")
 
     @property
     def rehydrator(self):
@@ -248,7 +259,7 @@ class LocalServer:
     @rehydrator.setter
     def rehydrator(self, rehydrator) -> None:
         if rehydrator is not None:
-            raise _not_ported("lazy-boot rehydrator")
+            raise _not_ported("lazy-boot rehydrator", "A10")
 
     # ------------------------------------------------------------------ api
 
@@ -352,6 +363,29 @@ class LocalServer:
         if orderer is not None:
             orderer.checkpoint()
             orderer.close()
+        self._get_orderer(tenant_id, document_id)
+
+    def crash_orderer(self, tenant_id: str, document_id: str) -> None:
+        """Simulate a kill -9 of the document's pipeline: tear down
+        WITHOUT checkpointing and rebuild from the last durable
+        checkpoint. Deli replays the raw log from its checkpointed
+        offset and re-tickets the window with identical sequence
+        numbers; downstream consumers dedupe by seq (the chaos soak's
+        stage-crash fault). An injected crash is a flight-recorder
+        trigger: the rings dump so the run carries the traffic that
+        preceded the kill."""
+        key = f"{tenant_id}/{document_id}"
+        orderer = self._orderers.pop(key, None)
+        if orderer is not None:
+            orderer.close()
+        recorder = get_recorder()
+        recorder.event("deli", "orderer_crash", tenant=tenant_id,
+                       doc=document_id)
+        try:
+            recorder.dump("orderer_crash", tenant=tenant_id,
+                          doc=document_id)
+        except OSError:
+            pass  # a failed dump must not break the crash simulation
         self._get_orderer(tenant_id, document_id)
 
     # ------------------------------------------------------------- internal

@@ -1,9 +1,8 @@
 """Service-generated summaries from the replica farm's device state.
 
 JAX counterpart: ``fluidframework_tpu/service/service_summarizer.py``;
-the port's copy, imports rebased to this package. The history plane is
-not ported yet (ROADMAP A4), so ``summarize_doc`` records no commit node
-for the version it writes; version records, blobs and the scribe head
+the port's copy, imports rebased to this package. Version records,
+blobs, the scribe head and the history-plane commit each summary records
 are the JAX package's.
 
 Ref: scribe's writeServiceSummary (scribe/summaryWriter.ts:226) — the
@@ -206,7 +205,14 @@ class ServiceSummarizer:
         # the scribe's ref-update path so the version reaches the durable
         # versions topic (survives process death) and retention advances
         scribe.commit_version(version_id, scribe.protocol.sequence_number)
-        # no history-plane commit node: the plane is not ported (ROADMAP A4)
+        # history plane hook: the committed generation becomes a commit
+        # node in the doc's ref graph (refs/main advances; forks and
+        # time-travel resolve against these)
+        history = getattr(self.server, "history", None)
+        if history is not None:
+            history.record_commit(
+                tenant_id, document_id, version_id,
+                scribe.protocol.sequence_number, chunk_ids)
         # the gate pass proved full coverage — anchor the slot so the doc
         # stays summarizable after this commit's own retention truncation
         self.applier.mark_anchored(tenant_id, document_id)

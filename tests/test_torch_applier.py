@@ -9,6 +9,7 @@ into the port as its own ``SequencedDocumentMessage`` (field copies).
 
 import numpy as np
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.service.tpu_applier import (
     TpuDocumentApplier,

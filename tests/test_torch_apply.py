@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 import torch
 
 from fluidframework_tpu.ops import apply as japply

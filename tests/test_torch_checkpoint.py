@@ -20,6 +20,7 @@ import shutil
 
 import numpy as np
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.service.load_gen import run_inproc as jax_run_inproc
 from fluidframework_tpu.service.tpu_applier import TpuDocumentApplier

@@ -8,6 +8,7 @@ take.
 """
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 import torch
 
 from fluidframework_tpu_torch.ops import cuda_apply

@@ -21,6 +21,7 @@ import random
 
 import numpy as np
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.service.durable_log import DurableLog as JaxLog
 from fluidframework_tpu.service.load_gen import run_inproc as jax_run_inproc

@@ -14,6 +14,7 @@ import ast
 from pathlib import Path
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 import torch
 
 import fluidframework_tpu_torch
@@ -54,9 +55,24 @@ READ_SIDE = ("protocol/snapcols.py", "protocol/summary.py",
              "loader/delta_manager.py", "replay/tool.py")
 
 
+#: the doc history plane and chaos soak phase A: host modules copied from
+#: the JAX package
+HISTORY_AND_CHAOS = ("protocol/refgraph.py", "obs/journal.py",
+                     "service/history_plane.py", "driver/history.py",
+                     "loader/history_boot.py", "chaos/__init__.py",
+                     "chaos/plane.py", "chaos/monitor.py", "chaos/hooks.py",
+                     "chaos/soak.py")
+
+
 def test_sources_cover_the_read_side():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(READ_SIDE)
+
+
+def test_sources_cover_the_history_plane_and_the_soak():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(HISTORY_AND_CHAOS)
+    assert ROOT / "chip_smoke.py" in SOURCES
 
 
 def test_forbidden_names_match_exactly():

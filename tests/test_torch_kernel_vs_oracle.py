@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu_torch.mergetree import MergeTreeClient, Perspective
 from fluidframework_tpu_torch.ops.apply import (

@@ -5,7 +5,9 @@ The three recorded documents of ``tests/corpus/corpus`` replay through
 the port's real client stack (file driver, ``Loader`` / ``Container``,
 runtime, SharedString and SharedMap) to the fingerprints and final texts
 the JAX package recorded in each ``expect.json``, and to the JAX replay's
-fingerprints on a finer grid; through the port's replica farm on the CPU
+fingerprints on a finer grid; a live local doc with committed summaries
+boots history-first in both packages to the same fingerprints; through
+the port's replica farm on the CPU
 (``replay_through_applier(device="cpu")``) to the recorded text; and a
 deliberately skewed apply fails the comparison (the tripwire, as
 ``tests/test_replay.py`` skews the JAX kernel). Without a card and with
@@ -107,8 +109,7 @@ def test_applier_path_needs_a_card_unless_told(monkeypatch):
 def test_file_driver_boots_from_snapshot_plus_tail():
     """text-basic carries a mid-stream acked summary: the file driver
     boots the container from it and the tail replays on top, on the
-    legacy whole-log path (no driver of the port has a history
-    surface)."""
+    legacy whole-log path (the file driver has no history surface)."""
     doc_dir = os.path.join(CORPUS, "text-basic")
     assert os.path.exists(os.path.join(doc_dir, "snapshot.json"))
     svc = FileDocumentService.from_dir(doc_dir)
@@ -138,3 +139,42 @@ def test_main_replays_a_doc_dir(capsys):
     out = capsys.readouterr().out
     assert "legacy whole-log replay to seq 67: 2 fingerprint(s)" in out
     assert repr(load_expect("text-conflict")["final_text"]) in out
+
+
+def _history_first_replay(pkg: str) -> dict:
+    """A live local doc summarized twice, then edited: the replay tool
+    boots it from its newest commit and pumps only the tail."""
+    from importlib import import_module
+
+    from tests.torch_stack_fixtures import stack
+
+    root = {"jax": "fluidframework_tpu",
+            "torch": "fluidframework_tpu_torch"}[pkg]
+    summ = import_module(root + ".service.service_summarizer")
+    tool = import_module(root + ".replay.tool")
+    st = stack(pkg)
+    server = st.server()
+    loader = st.Loader(st.LocalDocumentServiceFactory(server))
+    s = loader.resolve("t", "rp").runtime.create_data_store(
+        "default").create_channel("text", "shared-string")
+    for i in range(30):
+        s.insert_text(len(s.get_text()) // 2, f"e{i} ")
+        if i in (9, 19):
+            summ.ServiceSummarizer(
+                server, summ.HostReplicaSource(server)).summarize_doc(
+                    "t", "rp")
+    ctl = tool.ReplayController(
+        st.LocalDocumentServiceFactory(server).create_document_service(
+            "t", "rp"))
+    boot_seq = ctl.container.delta_manager.last_processed_seq
+    return {"history_first": ctl.history is not None,
+            "boot_seq": boot_seq, "run": ctl.run(7),
+            "text": s.get_text()}
+
+
+def test_history_first_replay_equals_jax():
+    got, want = _history_first_replay("torch"), _history_first_replay("jax")
+    assert got == want
+    assert got["history_first"] and got["boot_seq"] > 0
+    assert got["run"]["final_text"] == got["text"]
+    assert got["run"]["snapshots"]

@@ -11,6 +11,7 @@ appearance; timestamps are wall-clock and not compared.
 """
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.service.load_gen import run_inproc as jax_run_inproc
 from fluidframework_tpu.service.local_log import LocalLog as JaxLocalLog
@@ -144,22 +145,65 @@ def test_channel_stream_replays_the_doc():
         live.get_text("bench", "doc0") != ""
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(storage_dir="x"), dict(tenants=object()),
-    dict(external_scribe=True), dict(storage_server=("h", 1))])
-def test_unported_server_options_refuse(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+@pytest.mark.parametrize("kwargs, item", [
+    (dict(storage_dir="x"), "A9"), (dict(tenants=object()), "A10"),
+    (dict(external_scribe=True), "A9"), (dict(storage_server=("h", 1)),
+                                         "A9")])
+def test_unported_server_options_refuse(kwargs, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         LocalServer(**kwargs)
 
 
 def test_unported_server_planes_refuse():
+    """The sharded core's planes refuse, naming their ROADMAP item; the
+    history plane is the JAX package's, built on first use."""
+    from fluidframework_tpu_torch.service.history_plane import HistoryPlane
+
     server = LocalServer()
-    with pytest.raises(NotImplementedError, match="history plane"):
-        server.history
+    assert isinstance(server.history, HistoryPlane)
+    assert server.history is server.history
     for name, value in (("lazy_boot", True), ("rehydrator", object()),
                         ("epoch_fence", lambda: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             setattr(server, name, value)
+
+
+def _unreadable_log(log_cls, prefix: str):
+    """A log whose ``length`` raises ``OSError`` for topics under
+    ``prefix`` (a damaged checkpoints or versions topic)."""
+    class Unreadable(log_cls):
+        def length(self, topic):
+            if topic.startswith(prefix):
+                raise OSError(f"unreadable topic {topic}")
+            return super().length(topic)
+
+    return Unreadable()
+
+
+@pytest.mark.parametrize("prefix", ["checkpoints/", "versions/"])
+def test_orderer_boots_over_an_unreadable_topic_like_jax(prefix):
+    """An unreadable checkpoints or versions topic boots the doc without
+    those records, in both packages: ``connect``, the storage binding
+    (which restores version records first) and the doc's stream."""
+    from fluidframework_tpu.service.local_server import (
+        LocalServer as JaxLocalServer,
+    )
+
+    streams = []
+    for server_cls, log_cls in ((LocalServer, LocalLog),
+                                (JaxLocalServer, JaxLocalLog)):
+        server = server_cls(log=_unreadable_log(log_cls, prefix),
+                            clock=lambda: 0.0)
+        server._client_epoch = "e0"
+        conn = server.connect("t", "d")
+        assert server.storage("t", "d").get_versions(1) == []
+        server.checkpoint_all()
+        server.restart_orderer("t", "d")
+        conn.disconnect()
+        streams.append(_normalized(server.get_deltas("t", "d", 0, 10**9),
+                                   {}))
+    # the join, the leave and deli's noClient once the doc is empty
+    assert streams[0] == streams[1] and len(streams[0]) == 3
 
 
 def test_orderer_restart_matches_jax():

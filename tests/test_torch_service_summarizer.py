@@ -7,8 +7,8 @@ port with ``GpuDocumentApplier(device="cpu")``; then the same streams
 through both packages' summarizers (the JAX one over ``TpuDocumentApplier``
 on JAX's CPU backend): the same chunk bytes, root records, version
 records, refusal messages and chunk reuse, and everything the two servers
-store equal but the JAX history plane's commit records, which the port
-does not write.
+store equal, the history plane's commit records included (decoded,
+without their wall-clock ``ts``).
 """
 
 import pytest
@@ -448,33 +448,36 @@ def test_summaries_equal_jax():
     assert got["roots"] == want["roots"] and len(got["roots"]["long"]) == 2
     assert got["storage_stats"] == want["storage_stats"]
     # every db collection and log topic (blobs, version records, deltas,
-    # checkpoints) equal, once the JAX history plane's records are left
-    # out: the port does not write them
+    # checkpoints, the history plane's commit records) equal
     assert got["stored"] == want["stored"]
-    assert not any(k.startswith("db:history-records/")
-                   for k in stored(got["server"], skip=()))
-    assert any(k.startswith("db:history-records/")
-               for k in stored(want["server"], skip=()))
+    assert any(k.startswith("db:history-records/") for k in got["stored"])
 
 
 def test_summarize_doc_records_no_history_commit(server, loader):
-    """The history plane is not ported: ``summarize_doc`` commits the
-    version through scribe and writes no commit node, and the plane
-    itself still refuses."""
+    """``summarize_doc`` commits the version through scribe, and the
+    history plane records it as one commit node (no other: the name of
+    this test predates the plane in the port) that ``refs/main`` names,
+    with the chunks the version's root record lists."""
+    import json
+
     c1 = loader.resolve("t", "doc")
     c1.runtime.create_data_store("default").create_channel(
-        "text", "shared-string").insert_text(0, "no history yet")
+        "text", "shared-string").insert_text(0, "history now")
     applier = cpu_applier(max_docs=4, max_slots=64, ops_per_dispatch=8)
     applier.set_replay_source(lambda t, d: [])
     feed(applier, server, "t", "doc")
     version = ServiceSummarizer(server, applier).summarize_doc("t", "doc")
     assert server._get_orderer("t", "doc").scribe.last_summary_head \
         == version
-    assert server.storage("t", "doc").get_versions(1)[0]["id"] == version
-    assert not [n for n in server.db.collections
-                if n.startswith("history-records/")]
-    with pytest.raises(NotImplementedError, match="history plane"):
-        server.history
+    storage = server.storage("t", "doc")
+    assert storage.get_versions(1)[0]["id"] == version
+    (commit,) = server.history.log("t", "doc")
+    root = json.loads(storage.read_blob(
+        storage.get_versions(1)[0]["tree_id"]).decode())
+    assert commit["version"] == version and commit["parents"] == []
+    assert commit["chunk_ids"] == root["chunks"]
+    assert commit["base_seq"] == root["sequence_number"]
+    assert server.history.refs("t", "doc") == {"refs/main": commit["id"]}
 
 
 def _host_replica_summary(pkg: str):

@@ -14,6 +14,7 @@ import json
 import random
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.mergetree import MergeTreeClient as JaxMergeTreeClient
 from fluidframework_tpu.protocol import snapcols as jax_snapcols

@@ -25,6 +25,7 @@ import threading
 import time
 
 import pytest
+import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 import torch
 
 from fluidframework_tpu.service.durable_log import DurableLog as JaxLog
@@ -223,7 +224,7 @@ def _spawn(log_dir: str, state_dir: str) -> subprocess.Popen:
          "stage_runner", "--stage", "applier", "--device", "cpu",
          "--log-dir", log_dir, "--state-dir", state_dir],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-        text=True)
+        text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
     lines = []
     reader = threading.Thread(
         target=lambda: lines.append(proc.stdout.readline()), daemon=True)

@@ -1,13 +1,21 @@
-"""Shared by the client-stack and summarizer parity tests: the two
-packages' client stacks side by side, and a canonical form of what a
-``LocalServer`` stores, so that the JAX package's and the port's servers
-can be compared value by value."""
+"""Shared by the port's parity tests: the two packages' client stacks
+side by side, a canonical form of what a ``LocalServer`` stores, so that
+the JAX package's and the port's servers can be compared value by value,
+and the thread cap of the port's tests.
+
+Importing this module caps torch's intra-op threads at one: the port's
+tests run small tensors, and under ``pytest -n`` a pool of one thread a
+core in every worker crowds the subprocesses other test files spawn."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
 from types import SimpleNamespace
+
+import torch
+
+torch.set_num_threads(1)
 
 
 def stack(pkg: str) -> SimpleNamespace:
@@ -89,14 +97,38 @@ def canonical(obj):
     return obj
 
 
-def stored(server, skip=("history-records/",)) -> dict:
+HISTORY_RECORDS = "history-records/"
+
+
+def _records_without_ts(col: dict) -> list:
+    """A ``history-records/*`` collection decoded (each entry is framed
+    refgraph records in hex), without the wall-clock ``ts`` of commits
+    and refs."""
+    from fluidframework_tpu_torch.protocol.refgraph import scan_records
+
+    out = []
+    for i in range(len(col)):
+        records, _ = scan_records(bytes.fromhex(col[str(i)]["hex"]))
+        out += [{k: v for k, v in r.items() if k != "ts"} for r in records]
+    return out
+
+
+def history_records(server) -> dict:
+    """Every doc's history-plane records, decoded, without ``ts``."""
+    return {name[len(HISTORY_RECORDS):]: _records_without_ts(col)
+            for name, col in server.db.collections.items()
+            if name.startswith(HISTORY_RECORDS)}
+
+
+def stored(server) -> dict:
     """Every db collection and log topic of a server (the log's records
-    through its public ``length``/``read``), canonical, without the
-    collections whose names start with one of ``skip``."""
+    through its public ``length``/``read``), canonical; the history
+    plane's records decoded and without their wall-clock ``ts``."""
     out = {}
     for name, col in server.db.collections.items():
-        if not name.startswith(skip):
-            out["db:" + name] = canonical(col)
+        out["db:" + name] = (_records_without_ts(col)
+                             if name.startswith(HISTORY_RECORDS)
+                             else canonical(col))
     for topic in sorted(server.log._topics):
         out["log:" + topic] = [canonical(server.log.read(topic, i))
                                for i in range(server.log.length(topic))]
