@@ -33,6 +33,17 @@ GC; ``soak`` runs chaos soak phase A at seeds 0, 7 and 42 with its
 device stage on the card; ``replay`` replays the three recorded docs of
 ``tests/corpus`` through the farm on the card and through the client
 stack.
+Then the parallel layer: ``mesh`` drives the main path's farm (D=1024,
+S=256, K=32, seed 42) on a mesh of 4 docs shards (on 4 cards where the
+machine has them, else all on the first card; the phase prints which),
+held against a CPU applier's texts and the dense card applier's state
+rows, with its staging counters, a one-doc wave, the async applier, flat
+device memory over 100 small waves, a re-sharded checkpoint and its
+refusal by a 2-shard mesh, and soak phase A on a 2-shard mesh; it times
+the mesh step against the dense step and the 1-shard mesh against the
+dense lane. ``long_doc`` runs one giant doc through the segment-sharded
+apply at 8 x 128 slots (against B1 at S=1024 and the plain version) and
+8 x 4096 (against the plain version).
 Each phase prints one JSON line (the last one, each phase's seconds); any
 failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
@@ -1369,6 +1380,437 @@ def phase_history(held, power: str, device: str = "cuda"):
     return launches
 
 
+MESH_SHARDS = 4
+MESH_GEO = dict(max_docs=1024, max_slots=256, ops_per_dispatch=32)
+
+
+def mesh_devices(device: str = "cuda") -> tuple[list, str]:
+    """The mesh phase's shard devices: one card a shard where the machine
+    has MESH_SHARDS cards, else every shard on the first card (or, in a
+    CPU rehearsal, on the CPU). Returns (devices, how)."""
+    if device == "cuda" and torch.cuda.device_count() >= MESH_SHARDS:
+        return ([torch.device("cuda", i) for i in range(MESH_SHARDS)],
+                f"{MESH_SHARDS} cards, one shard each")
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    return [dev] * MESH_SHARDS, f"{MESH_SHARDS} shards on {dev}"
+
+
+def _sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _texts(app, n_docs: int) -> list:
+    return [app.get_text("t", f"doc{d}") for d in range(n_docs)]
+
+
+def _state_rows(app, n_docs: int) -> dict:
+    """Every doc's state row, read back once: field -> [n_docs, ...]."""
+    from fluidframework_tpu_torch.ops.doc_state import FIELDS
+
+    app.finalize()
+    rows = np.array([app.slot_of("t", f"doc{d}") for d in range(n_docs)])
+    state = app.state
+    return {f: getattr(state, f).cpu().numpy()[rows] for f in FIELDS}
+
+
+def _mesh_step_ms(mesh, feeds_docs, devices) -> dict:
+    """Device ms a wave of the mesh step (unpack → B1 → zamboni a shard,
+    and the stats) against the dense step on the same packed wave: the
+    second K-op wave of the phase's opgen docs, on the state the first
+    left."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.ops.apply import (
+        OP_FIELDS,
+        apply_ops_batch_ref,
+        compact_batch,
+        pack_wave_rows,
+        unpack_wave16,
+        wave_min_seq,
+    )
+    from fluidframework_tpu_torch.ops.doc_state import DocState
+    from fluidframework_tpu_torch.parallel.sharded_apply import (
+        make_sharded_packed_step,
+        shard_state,
+    )
+    from fluidframework_tpu_torch.tools.apply_ab import cuda_ms
+
+    D, S, K = MESH_GEO["max_docs"], MESH_GEO["max_slots"], \
+        MESH_GEO["ops_per_dispatch"]
+    stream = np.stack([rows[:2 * K] for rows in feeds_docs])
+    w1 = torch.from_numpy(stream[:, :K].copy()).to(devices[0])
+    state = apply_ops_batch_ref(DocState.empty(D, S, device=devices[0]), w1)
+    state = compact_batch(state, wave_min_seq(w1))
+    flat = stream[:, K:].reshape(-1, OP_FIELDS)
+    packed, sb, tb = pack_wave_rows(flat, np.arange(D) * K, np.full(D, K))
+    w16 = torch.from_numpy(packed.reshape(D, K, OP_FIELDS).astype(np.int16))
+    bases = torch.from_numpy(np.stack([sb, tb], 1).astype(np.int32))
+    packed_fn, _ = make_sharded_packed_step(mesh)
+    shards = shard_state(state, mesh)
+    n = MESH_SHARDS
+    w16_s = [b.to(mesh.shard_device(i)) for i, b in enumerate(
+        torch.chunk(w16, n))]
+    bases_s = [b.to(mesh.shard_device(i)) for i, b in enumerate(
+        torch.chunk(bases, n))]
+    w16_d, bases_d = w16.to(devices[0]), bases.to(devices[0])
+
+    def mesh_step():
+        return packed_fn(shards, w16_s, bases_s)
+
+    def dense_step():
+        wave = unpack_wave16(w16_d, bases_d)
+        return compact_batch(cuda_apply.apply_ops_batch(state, wave),
+                             wave_min_seq(wave))
+
+    if len(set(devices)) == 1:
+        # the host's enqueue of one step (eager launches, ~50 a shard)
+        for _ in range(2):
+            mesh_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            mesh_step()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
+        torch.cuda.synchronize()
+        # dense, mesh, mesh, dense, by CUDA events behind a ~100 ms sleep
+        # that outlasts the enqueue of 3 steps (~600 launches, inside the
+        # launch queue), so only device time counts
+        times = [cuda_ms(f, reps=3, sleep_cycles=200_000_000)
+                 for f in (dense_step, mesh_step, mesh_step, dense_step)]
+        return {"mesh_step_ms": min(times[1:3]),
+                "dense_step_ms": min(times[0], times[3]),
+                "step_times_ms": times, "mesh_enqueue_ms": enqueue_ms,
+                "timed_by": "cuda events"}
+    # shards on several cards: one host-clock span a wave, fenced
+    for _ in range(2):
+        mesh_step()
+    _sync_all(devices)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mesh_step()
+    _sync_all(devices)
+    return {"mesh_step_ms": (time.perf_counter() - t0) * 1e3 / 20,
+            "dense_step_ms": None, "timed_by": "host clock, fenced"}
+
+
+def _timed_feed(make, feeds, devices) -> tuple[float, object]:
+    """Seconds of building an applier, feeding it and finalizing, fenced."""
+    _sync_all(devices)
+    t0 = time.perf_counter()
+    app = make()
+    feed(app, feeds)
+    app.finalize()
+    _sync_all(devices)
+    return time.perf_counter() - t0, app
+
+
+def phase_mesh(power: str, device: str = "cuda"):
+    """The main path's hand-fed farm on a mesh of MESH_SHARDS docs shards
+    (D=1024, S=256, K=32, the bench_kernel opgen mix, seed 42): texts
+    against a CPU applier, every state row against the dense card
+    applier, staging bytes per active shard, a one-doc wave staging one
+    shard, the async applier with min_wave_ops, flat device memory over
+    100 small mesh waves, a checkpoint that reloads onto a 4-shard mesh
+    and is refused by a 2-shard one, and chaos soak phase A with its
+    stage on a 2-shard mesh. Returns B1's launches on the mesh run and
+    the mesh soak."""
+    from fluidframework_tpu_torch.chaos.soak import (
+        BOUNDARY_REQUIRED,
+        run_soak,
+    )
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.ops.apply import OP_FIELDS
+    from fluidframework_tpu_torch.ops.doc_state import FIELDS
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+        load_applier_checkpoint,
+        save_applier_checkpoint,
+    )
+
+    D, K = MESH_GEO["max_docs"], MESH_GEO["ops_per_dispatch"]
+    devices, how = mesh_devices(device)
+    mesh = make_mesh(MESH_SHARDS, devices=devices)
+    docs = make_opgen_docs(D, 96, seed=42)
+    feeds = opgen_feeds(docs, seed=43)
+    submitted = sum(len(rows) for rows in docs)
+
+    _sync_all(devices)
+    cuda_apply.LAUNCHES = 0
+    seconds, app = _timed_feed(
+        lambda: GpuDocumentApplier(mesh=mesh, **MESH_GEO), feeds, devices)
+    launches = cuda_apply.LAUNCHES
+    if app.mesh_waves != app.dispatches or app.dispatches == 0:
+        fail(f"mesh: {app.mesh_waves} mesh waves, {app.dispatches} "
+             "dispatches")
+    if launches != app.dispatches * MESH_SHARDS:
+        fail(f"mesh: {launches} kernel launches for {app.dispatches} waves "
+             f"of {MESH_SHARDS} shards")
+    if app.host_escalations or app.ops_applied != submitted:
+        fail(f"mesh: {app.host_escalations} escalations, "
+             f"{app.ops_applied} of {submitted} ops applied")
+    sps = app.placement.slots_per_shard
+    per_shard = sps * K * OP_FIELDS * 2 + sps * 2 * 4
+    if app.wide_dispatches or \
+            app.mesh_staged_bytes != app.mesh_active_shards * per_shard:
+        fail(f"mesh: staged {app.mesh_staged_bytes} bytes for "
+             f"{app.mesh_active_shards} active shards of {per_shard}")
+
+    cpu = GpuDocumentApplier(device="cpu", **MESH_GEO)
+    feed(cpu, feeds)
+    cpu_texts = _texts(cpu, D)
+    bad = [d for d, t in enumerate(_texts(app, D)) if t != cpu_texts[d]]
+    if bad:
+        fail(f"mesh: {len(bad)} docs differ from the CPU applier "
+             f"(first doc{bad[0]})")
+    dense = GpuDocumentApplier(device=device, **MESH_GEO)
+    feed(dense, feeds)
+    want, got = _state_rows(dense, D), _state_rows(app, D)
+    bad = [f for f in FIELDS if not np.array_equal(want[f], got[f])]
+    if bad or dense.host_escalations:
+        fail(f"mesh: state fields {bad} differ from the dense card "
+             "applier's")
+
+    one = GpuDocumentApplier(mesh=mesh, **MESH_GEO)
+    feed(one, feeds[:1])
+    one.finalize()
+    if one.mesh_active_shards != one.mesh_waves or one.mesh_waves == 0 \
+            or one.mesh_staged_bytes != one.mesh_waves * per_shard \
+            or one.get_text("t", "doc0") != cpu_texts[0]:
+        fail(f"mesh: one active doc staged {one.mesh_active_shards} shards "
+             f"and {one.mesh_staged_bytes} bytes in {one.mesh_waves} waves")
+
+    async_app = GpuDocumentApplier(mesh=mesh, async_dispatch=True,
+                                   min_wave_ops=32768, **MESH_GEO)
+    try:
+        feed(async_app, feeds)
+        async_app.finalize()
+        bad = [d for d, t in enumerate(_texts(async_app, D))
+               if t != cpu_texts[d]]
+    finally:
+        async_app.close()
+    if bad:
+        fail(f"mesh: the async applier differs on {len(bad)} docs")
+
+    memory = _mesh_memory_flat(mesh, devices)
+
+    with _scratch_dir() as tmp:
+        path = os.path.join(tmp, "mesh")
+        save_applier_checkpoint(app, path)
+        loaded = load_applier_checkpoint(path, mesh=mesh)
+        bad = [d for d, t in enumerate(_texts(loaded, D))
+               if t != cpu_texts[d]]
+        if bad:
+            fail(f"mesh: the reloaded checkpoint differs on {len(bad)} docs")
+        try:
+            load_applier_checkpoint(
+                path, mesh=make_mesh(2, devices=devices[:2]))
+            fail("mesh: a 2-shard mesh loaded a 4-shard checkpoint")
+        except ValueError as err:
+            refusal = str(err)
+
+    _sync_all(devices)
+    cuda_apply.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run_soak(0, quick=True, phases="a", mesh_shards=2, device=device)
+    soak_seconds = time.perf_counter() - t0
+    soak_launches = cuda_apply.LAUNCHES
+    missing = set(BOUNDARY_REQUIRED) - set(out["coverage"])
+    if missing or soak_launches == 0:
+        fail(f"mesh soak: classes {sorted(missing)} not covered, "
+             f"{soak_launches} kernel launches")
+
+    timing = (_mesh_step_ms(mesh, docs, devices) if device == "cuda"
+              else {})
+    # the 1-shard mesh lane against the dense lane, same geometry and
+    # feed, in turns (dense, mesh, mesh, dense); recorded, not gated
+    tax = []
+    for make in ("dense", "mesh1", "mesh1", "dense"):
+        kw = ({"device": device} if make == "dense" else
+              {"mesh": make_mesh(1, devices=devices[:1])})
+        tax.append(_timed_feed(
+            lambda kw=kw: GpuDocumentApplier(**kw, **MESH_GEO), feeds,
+            devices)[0])
+    emit({"phase": "mesh", "shards": MESH_SHARDS, "placement": how,
+          "devices": [str(d) for d in devices], "docs": D,
+          "slots": MESH_GEO["max_slots"], "K": K, "ops": submitted,
+          "dispatches": app.dispatches, "seconds": seconds,
+          "ops_per_sec": submitted / seconds, "launches": launches,
+          "active_shards": app.mesh_active_shards,
+          "staged_bytes": app.mesh_staged_bytes,
+          "staged_bytes_per_shard": per_shard,
+          "one_doc_staged_bytes": one.mesh_staged_bytes,
+          "one_doc_waves": one.mesh_waves,
+          "stage_seconds": app.mesh_stage_seconds,
+          "exec_seconds": app.exec_seconds,
+          "exec_device_seconds": app.exec_device_seconds,
+          "state_rows_match_dense": True, "texts_match_cpu": True,
+          "async_texts_match": True, "checkpoint_refusal": refusal,
+          **memory, **timing,
+          "tax_seconds_dense_mesh1_mesh1_dense": tax,
+          "mesh1_over_dense": (tax[1] + tax[2]) / (tax[0] + tax[3]),
+          "soak": {"seed": 0, "mesh_shards": 2, "coverage": out["coverage"],
+                   "observed": out["observed"], "seconds": soak_seconds,
+                   "launches": soak_launches},
+          "card": power})
+    return launches + soak_launches
+
+
+def _mesh_memory_flat(mesh, devices) -> dict:
+    """Device memory of a small mesh applier (the JAX test's geometry)
+    across 100 waves of 4 docs × 2 ops: allocated bytes behind a fence
+    after wave 10 and after wave 100 must be equal."""
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+    )
+
+    def allocated():
+        _sync_all(devices)
+        return sum(torch.cuda.memory_allocated(d)
+                   for d in dict.fromkeys(devices) if d.type == "cuda")
+
+    app = GpuDocumentApplier(mesh=mesh, max_docs=8, max_slots=32,
+                             ops_per_dispatch=4)
+    seq, baseline = 0, None
+    for wave in range(100):
+        for i in range(4):
+            for op in ({"type": 0, "pos": 0, "text": "x"},
+                       {"type": 1, "start": 0, "end": 1}):
+                seq += 1
+                msg = SimpleNamespace(
+                    sequence_number=seq,
+                    reference_sequence_number=max(seq - 1, 0),
+                    minimum_sequence_number=max(seq - 4, 0),
+                    client_id="c0")
+                app.ingest("t", f"d{i}", msg, op)
+        app.flush()
+        if wave == 9:
+            baseline = allocated()
+    app.finalize()
+    end = allocated()
+    if app.mesh_waves < 100 or end > baseline or app.host_escalations:
+        fail(f"mesh: device memory {baseline} -> {end} bytes over "
+             f"{app.mesh_waves} waves")
+    return {"memory_waves": app.mesh_waves,
+            "memory_bytes_after_10_and_100": [baseline, end]}
+
+
+LONG_DOC_SEG = 8
+#: (S_LOCAL, ops, remove fraction): the first at B1's largest S in all,
+#: the second a doc past one shard's 4096 slots
+LONG_DOC_CASES = ((128, 600, 0.15), (4096, 3600, 0.08))
+LONG_DOC_CHUNK = 8  # tests/test_long_doc_apply.py's chunk and watermark
+
+
+def _live_rows(state) -> list:
+    """Live slot rows (the slot fields) in logical order, shard-major."""
+    from fluidframework_tpu_torch.ops.doc_state import SLOT_FIELDS
+
+    a = {f: getattr(state, f).cpu().numpy() for f in SLOT_FIELDS}
+    counts = state.count.cpu().numpy()
+    return [tuple(int(a[f][s, i]) for f in SLOT_FIELDS)
+            for s in range(len(counts)) for i in range(int(counts[s]))]
+
+
+def _giant_doc(ops: torch.Tensor, s_local: int) -> tuple:
+    """The segment-sharded apply of ``ops`` over LONG_DOC_SEG shards of
+    ``s_local`` slots on the ops' device, chunked, rebalanced on the host
+    past the watermark. Returns (state, rebalances)."""
+    from fluidframework_tpu_torch.ops.doc_state import (
+        FIELDS,
+        DocState,
+        state_from_numpy,
+    )
+    from fluidframework_tpu_torch.parallel.long_doc import (
+        rebalance_shards,
+        sharded_apply_ops,
+    )
+
+    state = DocState.empty(LONG_DOC_SEG, s_local, device=ops.device)
+    watermark = s_local - 3 * LONG_DOC_CHUNK
+    rebalances = 0
+    for i in range(0, len(ops), LONG_DOC_CHUNK):
+        state = sharded_apply_ops(state, ops[i:i + LONG_DOC_CHUNK])
+        counts = state.count.cpu().numpy()
+        if bool(state.overflow.any()):
+            fail(f"long_doc: overflow at op {i}")
+        if counts.max() > watermark:
+            arrays = {f: getattr(state, f).cpu().numpy() for f in FIELDS
+                      if f not in ("count", "overflow")}
+            arrays, new_counts = rebalance_shards(arrays, counts)
+            arrays.update(count=new_counts,
+                          overflow=np.zeros(LONG_DOC_SEG, np.bool_))
+            state = state_from_numpy(arrays, ops.device)
+            rebalances += 1
+    return state, rebalances
+
+
+def phase_long_doc(power: str, device: str = "cuda"):
+    """One giant doc through the segment-sharded apply (PyTorch on the
+    card; no kernel of its own) in two cases: 8 x 128 slots against B1
+    on one doc at S=1024 and against the plain version, and 8 x 4096
+    (32,768 slots, the doc past one shard's budget) against the plain
+    single-doc apply."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.ops.apply import (
+        apply_ops_batch_ref,
+        compact_batch,
+        wave_min_seq,
+    )
+    from fluidframework_tpu_torch.ops.doc_state import DocState
+    from fluidframework_tpu_torch.ops.opgen import generate_batch_ops
+
+    def fence():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cases = []
+    for s_local, n_ops, remove in LONG_DOC_CASES:
+        ops_np = generate_batch_ops(
+            np.random.default_rng(42), 1, n_ops, remove_fraction=remove,
+            annotate_fraction=0.05, max_insert=6)[0]
+        ops = torch.from_numpy(ops_np).to(device)
+        S = LONG_DOC_SEG * s_local
+        fence()
+        t0 = time.perf_counter()
+        state, rebalances = _giant_doc(ops, s_local)
+        fence()
+        sharded_seconds = time.perf_counter() - t0
+        rows = _live_rows(state)
+
+        def single(apply):
+            out = apply(DocState.empty(1, S, device=device), ops[None])
+            out = compact_batch(out, wave_min_seq(ops[None]))
+            if bool(out.overflow[0]):
+                fail(f"long_doc: the single-doc reference at S={S} "
+                     "overflowed")
+            return _live_rows(out)
+
+        t0 = time.perf_counter()
+        plain = single(apply_ops_batch_ref)
+        plain_seconds = time.perf_counter() - t0
+        row = {"seg_shards": LONG_DOC_SEG, "s_local": s_local, "S": S,
+               "ops": n_ops, "live_rows": len(rows),
+               "max_shard_count": int(state.count.max()),
+               "rebalances": rebalances, "sharded_seconds": sharded_seconds,
+               "plain_seconds": plain_seconds}
+        if rows != plain:
+            fail(f"long_doc S={S}: the sharded apply differs from the "
+                 "plain single-doc apply")
+        if S <= cuda_apply.MAX_SLOTS:
+            t0 = time.perf_counter()
+            if single(cuda_apply.apply_ops_batch) != rows:
+                fail(f"long_doc S={S}: the sharded apply differs from B1")
+            row["b1_seconds"] = time.perf_counter() - t0
+        elif len(rows) <= s_local:
+            fail(f"long_doc S={S}: {len(rows)} live rows fit one shard")
+        if rebalances == 0:
+            fail(f"long_doc S={S}: the stream never rebalanced")
+        cases.append(row)
+    emit({"phase": "long_doc", "cases": cases, "card": power})
+
+
 SOAK_SEEDS = (0, 7, 42)
 
 
@@ -1525,6 +1967,8 @@ def main() -> None:
         held.card.close()  # re-raises a worker exception: the run fails
     launches += timed(phase_soak, power)
     launches += timed(phase_replay, power)
+    launches += timed(phase_mesh, power)
+    timed(phase_long_doc, power)
     emit({"phase": "seconds", **seconds})
 
     main_row = rows[0]  # the main path's shape: D=1024, S=256, K=32

@@ -3,14 +3,16 @@
 JAX counterpart: ``fluidframework_tpu/chaos/soak.py``; the port's copy of
 phase A, imports rebased to this package, with ``DeviceStage``'s applier
 a ``GpuDocumentApplier`` on ``cuda`` unless given ``device="cpu"``.
-Phase B (socket clients, a relay-tier gateway, the snapshot plane's
-served chunks) comes with the network tier (ROADMAP A8), and the stage's
-doc-sharded mesh (``mesh_shards``) with multi-GPU sharding (A6); both
-raise ``NotImplementedError``.
+``mesh_shards=n`` runs that applier over a doc-sharded mesh of n shards,
+all on the stage's device when one is named, else on n cards (too few
+cards raise; no virtual devices are forced). Phase B (socket clients, a
+relay-tier gateway, the snapshot plane's served chunks) comes with the
+network tier (ROADMAP A8) and raises ``NotImplementedError``.
 
 ``python -m fluidframework_tpu_torch.chaos.soak --seed N [--quick]
-[--device cpu]`` runs phase A and asserts every invariant the monitor
-knows about, plus replica/device fingerprint identity at quiescence:
+[--device cpu] [--mesh-shards N]`` runs phase A and asserts every
+invariant the monitor knows about, plus replica/device fingerprint
+identity at quiescence:
 
 - **Phase A** (in-proc, ``auto_drain=False`` — fully deterministic):
   merge-tree clients edit one document through a LocalServer while the
@@ -244,14 +246,17 @@ class DeviceStage:
     same checkpoint protocol (farm save BEFORE offset save), stepped
     synchronously — the applier is not async, so its overlap-window
     crash seams fire on this thread — so the soak can kill it exactly
-    inside either crash window and run the real restore."""
+    inside either crash window and run the real restore. With
+    ``mesh_shards`` the farm is doc-sharded over that many shards (the
+    multi-device lane): the whole crash/checkpoint/restore protocol must
+    hold there too."""
 
     #: the JAX soak's farm geometry, so both packages' stages take the
     #: same waves
     GEOMETRY = dict(max_docs=8, max_slots=64)
 
     def __init__(self, server, plane: FaultPlane, counters: Counters,
-                 state_dir: str, device=None):
+                 state_dir: str, device=None, mesh_shards: int = 0):
         from ..service.gpu_applier import GpuDocumentApplier
 
         self.server = server
@@ -260,11 +265,19 @@ class DeviceStage:
         self.device = device
         self.ckpt = os.path.join(state_dir, "applier")
         self.topic = f"deltas/{TENANT}/{DOC}"
-        self.applier = GpuDocumentApplier(device=device, **self.GEOMETRY)
+        self.mesh_shards = mesh_shards
+        self.applier = GpuDocumentApplier(**self._applier_kwargs(),
+                                          **self.GEOMETRY)
         self.applier.set_replay_source(self._replay_from_log)
         self._offset = -1   # highest offset consumed
         self._handler = None
         self._subscribe(0)
+
+    def _applier_kwargs(self) -> dict:
+        kw = {"device": self.device}
+        if self.mesh_shards:
+            kw["mesh"] = self.mesh_shards
+        return kw
 
     def _replay_from_log(self, tenant_id, document_id):
         """Escalation replay source reading the deltas LOG, not the
@@ -337,9 +350,9 @@ class DeviceStage:
         self.server.log.unsubscribe(self.topic, self._handler)
         if os.path.exists(self.ckpt + ".json"):
             self.applier = load_applier_checkpoint(self.ckpt,
-                                                   device=self.device)
+                                                   **self._applier_kwargs())
         else:
-            self.applier = GpuDocumentApplier(device=self.device,
+            self.applier = GpuDocumentApplier(**self._applier_kwargs(),
                                               **self.GEOMETRY)
         self.applier.set_replay_source(self._replay_from_log)
         start = 0
@@ -406,11 +419,6 @@ def run_phase_a(seed: int, counters: Counters, rounds: int = 24,
                 ) -> tuple[FaultPlane, InvariantMonitor]:
     from ..service.local_server import LocalServer
 
-    if mesh_shards:
-        raise NotImplementedError(
-            "a doc-sharded mesh for the soak's device stage is not ported "
-            "to fluidframework_tpu_torch yet (ROADMAP A6)")
-
     monitor = InvariantMonitor(counters, dedupe=not break_dedupe)
     plane = FaultPlane(seed, counters)
     _schedule_phase_a(plane)
@@ -421,7 +429,7 @@ def run_phase_a(seed: int, counters: Counters, rounds: int = 24,
     try:
         with tempfile.TemporaryDirectory(prefix="chaos-soak-") as state_dir:
             device = DeviceStage(server, plane, counters, state_dir,
-                                 device=device)
+                                 device=device, mesh_shards=mesh_shards)
             install(plane, appliers=[device.applier])
             rng = random.Random(seed)
             clients = [SoakClient(server, monitor, counters,
@@ -629,7 +637,8 @@ def run_soak(seed: int, quick: bool = False, break_dedupe: bool = False,
              no_recover: bool = False, phases: str = "a",
              mesh_shards: int = 0, device=None) -> dict:
     """Run the campaign's phase A on ``device`` (the stage's applier;
-    ``cuda`` when None) and return its result; raises
+    ``cuda`` when None; over a mesh of ``mesh_shards`` docs shards when
+    nonzero) and return its result; raises
     :class:`InvariantViolation` on any failure."""
     if "b" in phases:
         raise NotImplementedError(
@@ -687,6 +696,10 @@ def main(argv=None) -> int:
                         help="phase B is not ported yet")
     parser.add_argument("--device", default=None,
                         help="the device stage's device (default cuda)")
+    parser.add_argument("--mesh-shards", type=int, default=0,
+                        help="run phase A's applier stage over a "
+                             "doc-sharded mesh of this many shards (all on "
+                             "--device when given, else one a card)")
     parser.add_argument("--break-dedupe", action="store_true",
                         help="self-test: disable the monitor's seq dedupe "
                              "(the soak MUST fail)")
@@ -698,7 +711,7 @@ def main(argv=None) -> int:
         result = run_soak(args.seed, quick=args.quick,
                           break_dedupe=args.break_dedupe,
                           no_recover=args.no_recover, phases=args.phases,
-                          device=args.device)
+                          mesh_shards=args.mesh_shards, device=args.device)
     except InvariantViolation as e:
         # attach the flight-recorder dump (if one fired) so the failure
         # report carries the telemetry that preceded the trigger

@@ -98,14 +98,18 @@ def _masked_sum(mask: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, a, 0).sum(-1, keepdim=True, dtype=torch.int32)
 
 
-def _visibility(state: DocState, ref_seq, client):
+def _visibility(state: DocState, ref_seq, client, count=None):
     """Per-slot visibility at each doc's op perspective → (vis, vlen, cum).
 
     ``ref_seq`` and ``client`` are [D, 1]. ``cum`` is the exclusive prefix
-    sum of visible lengths (int32, as in the JAX package)."""
+    sum of visible lengths (int32, as in the JAX package). ``count`` [D]
+    overrides ``state.count`` for callers whose rows are shards of a
+    larger doc (``parallel/long_doc.py`` passes the local counts)."""
+    if count is None:
+        count = state.count
     S = state.max_slots
     idx = torch.arange(S, dtype=torch.int32, device=state.device)
-    in_use = idx[None, :] < state.count[:, None]
+    in_use = idx[None, :] < count[:, None]
     ins_seen = (state.ins_client == client) | (state.ins_seq <= ref_seq)
     removed = (state.rem_seq != NO_SEQ) & (
         (state.rem_client_a == client)
@@ -129,22 +133,34 @@ def _shifted(a: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor
                        torch.where(d2, torch.roll(a, 2, dims=1), a))
 
 
-def _apply_core(state: DocState, op: torch.Tensor) -> DocState:
+def _apply_core(state: DocState, op: torch.Tensor, prefix=None,
+                insert_here=True, reduce_any=None) -> DocState:
     """Apply one op per doc (``op`` int32 [D, OP_FIELDS]) to every doc.
 
     The unified insert/remove/annotate body of the JAX ``_apply_core``: a
     single visibility/prefix-sum pass and a single shift-by-0/1/2 rebuild
     cover both potential splits and the insert shift. An op creates at
     most two new slots, so every output slot is one of a[o], a[o-1],
-    a[o-2], plus point patches at the split and insert indices."""
+    a[o-2], plus point patches at the split and insert indices.
+
+    Rows are independent docs unless a caller says otherwise. The
+    segment-sharded giant-doc path (``parallel/long_doc.py``), whose rows
+    are one doc's seg shards, passes ``prefix`` = (vis, vlen, cum, total)
+    with the GLOBAL prefix, masks the insert to the boundary-owning row
+    with ``insert_here`` ([D, 1] bool), and supplies ``reduce_any`` (an
+    any over the rows) so a capacity or shape problem on ANY shard aborts
+    the op on EVERY shard."""
     S = state.max_slots
     P = state.max_props
 
     def col(f):
         return op[:, f:f + 1]  # [D, 1]
 
-    vis, vlen, cum = _visibility(state, col(F_REFSEQ), col(F_CLIENT))
-    total = vlen.sum(-1, keepdim=True, dtype=torch.int32)
+    if prefix is None:
+        vis, vlen, cum = _visibility(state, col(F_REFSEQ), col(F_CLIENT))
+        total = vlen.sum(-1, keepdim=True, dtype=torch.int32)
+    else:
+        vis, vlen, cum, total = prefix
     count = state.count[:, None]
 
     typ = col(F_TYPE)
@@ -165,13 +181,15 @@ def _apply_core(state: DocState, op: torch.Tensor) -> DocState:
     inside2 = vis & (cum < p2) & (p2 < inc)
     s1_raw = inside1.any(-1, keepdim=True)
     s2_raw = ~is_ins & inside2.any(-1, keepdim=True)
+    ins_here = is_ins & insert_here
     needed = (s1_raw.to(torch.int32) + s2_raw.to(torch.int32)
-              + is_ins.to(torch.int32))
-    bad = active & (bad_shape | (count + needed > S))
+              + ins_here.to(torch.int32))
+    refused = bad_shape | (count + needed > S)
+    bad = active & (refused if reduce_any is None else reduce_any(refused))
     ok = active & ~bad
     s1 = s1_raw & ok
     s2 = s2_raw & ok
-    do_ins = is_ins & ok
+    do_ins = ins_here & ok
 
     j1 = _first_true(inside1)
     j2 = _first_true(inside2)

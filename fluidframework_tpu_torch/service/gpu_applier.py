@@ -1,13 +1,29 @@
 """GpuDocumentApplier: the batched server-side merge-tree replica farm.
 
 JAX counterpart: ``fluidframework_tpu/service/tpu_applier.py::
-TpuDocumentApplier`` without its mesh lane (ROADMAP A6), with
+TpuDocumentApplier``, its doc-sharded mesh lane included, with
 ``save_applier_checkpoint`` / ``load_applier_checkpoint`` writing and
 reading the JAX package's checkpoint format byte for byte.
 The service keeps thousands of documents as ONE device-resident
 structure-of-arrays batch (``ops/doc_state.DocState`` with a leading doc
 dimension) and applies every sequenced merge-tree op to it in waves of up
 to K ops per doc.
+
+The batch lives as a list of shard states, shard-major. Without a mesh
+there is one shard on ``device`` (the dense lane). With ``mesh=`` (a
+``parallel.mesh.Mesh``, or an int: that many shards on the cards, or on
+``[device] * n`` when ``device`` is named) the docs axis is cut into the
+mesh's docs shards, each on its own device (several may share one), and
+``DocPlacement`` routes a doc to a (shard, slot) whose global row is
+``shard * slots_per_shard + slot``. A mesh wave stages only its ACTIVE
+shards (``_stage_wave_mesh``): rows sorted by shard once, each active
+shard scattered into its own pinned buffers and copied to its device;
+inactive shards get a zero wave already resident there. The step
+(``parallel/sharded_apply.make_sharded_packed_step``) then runs every
+shard's unpack → B1 → zamboni on its device. Dropped from the JAX lane
+as TPU/XLA artifacts: ``NamedSharding`` assembly, donation, the Pallas
+tile rule (docs per shard % 8) and the staging thread pool (the copies
+are asynchronous already).
 
 A dispatch has two halves. The host half (``_stage_wave``) packs the
 wave's rows (``ops/apply.pack_wave_rows``) into an int16 [D, K, 12] delta
@@ -21,7 +37,8 @@ int16 ships at full int32 width instead and skips the unpack. With
 ``overlap`` on (the default) nothing waits for the card, so the host
 stages wave N+1 while wave N runs; with it off every step is fenced.
 
-Fences, all on CUDA events recorded on the applier's stream:
+Fences, all on CUDA events recorded on the applier's streams (one stream
+and one event a step for each distinct device of the farm):
 - a staging set is handed out again only after the event of the step
   that consumed it has completed (``_rotate_stage_buffers``), and that
   wait comes before the set is zeroed: the pinned memory may still be
@@ -30,10 +47,10 @@ Fences, all on CUDA events recorded on the applier's stream:
   width flip of a forced wide wave, ``finalize``, ``close``);
 - every read of device state (the overflow poll, ``get_text``,
   ``get_tree``, ``get_properties_at``, ``slot_count``) runs with the
-  applier's stream current on the reading thread, so its device→host copy
-  is ordered after every step enqueued there. State tensors are made and
-  freed on that one stream, so the caching allocator never hands a block
-  to another stream while a step still reads it.
+  applier's streams current on the reading thread (``_on_streams``), so
+  its device→host copy is ordered after every step enqueued there. State
+  tensors are made and freed on those streams, so the caching allocator
+  never hands a block to another stream while a step still reads it.
 
 With ``async_dispatch`` a worker thread owns staging, execution and the
 periodic overflow poll (it defers escalation to the caller's next sync
@@ -64,6 +81,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import ExitStack
 from dataclasses import replace
 from typing import Optional, Union
 
@@ -109,7 +127,13 @@ from ..ops.doc_state import (
     decode_state,
     state_from_numpy,
 )
+from ..parallel.mesh import Mesh, make_mesh, virtual_devices
 from ..parallel.placement import DocPlacement
+from ..parallel.sharded_apply import (
+    make_sharded_packed_step,
+    shard_state,
+    unshard_state,
+)
 from ..protocol.messages import MessageType
 from ..utils.affinity import blocking
 
@@ -155,21 +179,24 @@ class _StagedWave:
     wave. Holding one of these means the wave's ops have LEFT the staged
     dict but have not yet been issued to the device."""
 
-    __slots__ = ("wide", "arrays", "n", "nbytes", "flip")
+    __slots__ = ("lane", "wide", "arrays", "n", "nbytes", "flip")
 
-    def __init__(self, wide: bool, arrays: tuple, n: int, nbytes: int,
-                 flip: int):
+    def __init__(self, lane: str, wide: bool, arrays: tuple, n: int,
+                 nbytes: int, flip: int):
+        self.lane = lane        # "dense" | "mesh" (metrics label)
         self.wide = wide        # int32 escape lane (range / force_wide)
-        self.arrays = arrays    # device tensors, step-call order
+        self.arrays = arrays    # device tensors (mesh: per-shard lists)
         self.n = n              # op rows in the wave
         self.nbytes = nbytes    # host bytes staged
         self.flip = flip        # which staging-buffer set holds the wave
 
 
 class GpuDocumentApplier:
-    """Maintains [D, S] doc states on one device, fed by sequenced op
-    streams. ``device`` defaults to ``cuda`` and raises without a card;
-    ``device="cpu"`` runs the plain PyTorch versions."""
+    """Maintains [D, S] doc states, fed by sequenced op streams, on one
+    device or over a mesh's docs shards. ``device`` defaults to ``cuda``
+    and raises without a card; ``device="cpu"`` runs the plain PyTorch
+    versions. ``mesh`` is a ``Mesh`` (then ``device`` stays None) or an
+    int shorthand for a docs-only mesh of that many shards."""
 
     #: chaos seam: forced device escalations — the int32 wide dispatch
     #: path and the overflow-to-host flip — so the rare lanes run under a
@@ -188,9 +215,9 @@ class GpuDocumentApplier:
         async_dispatch: bool = False,
         min_wave_ops: Optional[int] = None,
         overlap: Optional[bool] = None,
+        mesh: Union[Mesh, int, None] = None,
     ):
         cfg = Config.from_env()
-        self.device = resolve_device(device)
         self.max_docs = (max_docs if max_docs is not None
                          else cfg.applier_max_docs)
         self.max_slots = (max_slots if max_slots is not None
@@ -205,15 +232,57 @@ class GpuDocumentApplier:
             overflow_check_every if overflow_check_every is not None
             else cfg.applier_overflow_check_every)
         self._dispatches_since_check = 0
-        self.placement = DocPlacement(n_shards=1,
-                                      slots_per_shard=self.max_docs)
-        # the applier's own stream: every copy, step and state read of
-        # this farm is ordered on it (None on the CPU)
-        self._stream = (torch.cuda.Stream(device=self.device)
-                        if self.device.type == "cuda" else None)
-        with torch.cuda.stream(self._stream):
-            self.state = DocState.empty(self.max_docs, self.max_slots,
-                                        device=self.device)
+        # an int mesh is shorthand for a docs-only mesh of that many
+        # shards: over the cards (raising if there are too few), or all on
+        # the named device
+        if isinstance(mesh, int):
+            mesh = make_mesh(mesh, devices=None if device is None
+                             else virtual_devices(mesh, device))
+        elif mesh is not None and device is not None:
+            raise ValueError("a Mesh names its own devices: pass mesh= or "
+                             "device=, not both")
+        self._mesh = mesh
+        # the doc→shard routing table (partition-router role): shard s
+        # owns the contiguous state rows [s * sps, (s + 1) * sps)
+        if mesh is not None:
+            n_shards = mesh.shape["docs"]
+            if self.max_docs % n_shards:
+                raise ValueError(
+                    f"max_docs={self.max_docs} not divisible by the mesh's "
+                    f"docs axis ({n_shards})")
+            self.placement = DocPlacement(
+                n_shards=n_shards, slots_per_shard=self.max_docs // n_shards)
+            self._shard_devices = [mesh.shard_device(s)
+                                   for s in range(n_shards)]
+            self.device = self._shard_devices[0]
+        else:
+            self.device = resolve_device(device)
+            self.placement = DocPlacement(n_shards=1,
+                                          slots_per_shard=self.max_docs)
+            self._shard_devices = [self.device]
+        # the applier's own streams, one per distinct device: every copy,
+        # step and state read of this farm is ordered on them (none on
+        # the CPU); _stream is the first device's
+        self._streams = {d: torch.cuda.Stream(device=d)
+                         for d in dict.fromkeys(self._shard_devices)
+                         if d.type == "cuda"}
+        self._stream = self._streams.get(self.device)
+        sps = self.max_docs // len(self._shard_devices)
+        with self._on_streams():
+            # the farm's state, one DocState a shard, shard-major
+            self._shards = [DocState.empty(sps, self.max_slots, device=d)
+                            for d in self._shard_devices]
+        # mesh-lane staging counters: per-wave staged bytes scale with
+        # ACTIVE shards, never with max_docs
+        self.mesh_waves = 0
+        self.mesh_active_shards = 0
+        self.mesh_staged_bytes = 0
+        self.mesh_stage_seconds = 0.0
+        if mesh is not None:
+            self._sharded_step = make_sharded_packed_step(mesh)
+            # per-device resident zero shards, reused every wave for
+            # INACTIVE shards (no host allocation, no copy)
+            self._zero_shards: dict = {}
         self.arenas = [TextArena() for _ in range(self.max_docs)]
         self.prop_table = PropTable()  # shared across docs; ids are dense
         # per-doc dense client interning (collision-free by construction)
@@ -248,12 +317,12 @@ class GpuDocumentApplier:
         self._stage_pool: tuple = ({}, {})
         self._stage_inflight: list = [None, None]
         self._stage_flip = 0
-        # the last step's completion event: query() is the non-blocking
-        # "device still executing" probe of the overlap accounting;
-        # _drain_device() waits on it at seams
-        self._exec_marker: Optional[torch.cuda.Event] = None
+        # the last step's completion events, one per device: query() is
+        # the non-blocking "device still executing" probe of the overlap
+        # accounting; _drain_device() waits on them at seams
+        self._exec_markers: list = []
         # (start, end) timing events of steps not yet folded into
-        # exec_device_seconds
+        # exec_device_seconds, one pair per device a step
         self._timed_steps: deque = deque()
         self.stage_seconds = 0.0
         self.stage_overlap_seconds = 0.0
@@ -298,7 +367,8 @@ class GpuDocumentApplier:
     # ------------------------------------------------------------- ingest
 
     def slot_of(self, tenant_id: str, document_id: str) -> int:
-        """State row of a doc (the one-shard placement's slot)."""
+        """Global state row of a doc: the placement's (shard, slot)
+        flattened shard-major, so rows route to their owning shard."""
         shard, slot = self.placement.place(tenant_id, document_id)
         row = shard * self.placement.slots_per_shard + slot
         self._doc_keys.setdefault(row, (tenant_id, document_id))
@@ -525,7 +595,7 @@ class GpuDocumentApplier:
 
     def _flush_sync(self) -> int:
         total = 0
-        with torch.cuda.stream(self._stream):
+        with self._on_streams():
             while self._staged:
                 total += self._dispatch_wave(self._take_wave_locked())
         self.ops_applied += total
@@ -649,7 +719,7 @@ class GpuDocumentApplier:
 
     def _worker_loop(self) -> None:
         try:
-            with torch.cuda.stream(self._stream):
+            with self._on_streams():
                 self._worker_run()
         except BaseException as exc:  # noqa: BLE001 — re-raised by the
             # caller's next flush/finalize/close
@@ -677,10 +747,10 @@ class GpuDocumentApplier:
             with self._lock:
                 self.ops_applied += n
             if self._dispatches_since_check >= self.overflow_check_every:
-                # poll from the worker (it owns the stream); defer the
+                # poll from the worker (it owns the streams); defer the
                 # escalation replay to the caller's next sync point
                 self._dispatches_since_check = 0
-                flags = self.state.overflow.cpu().numpy()
+                flags = self._overflow_flags()
                 hit = {int(s) for s in np.nonzero(flags)[0]}
                 if hit:
                     with self._lock:
@@ -694,6 +764,34 @@ class GpuDocumentApplier:
             self._registry = get_registry()
         return self._registry
 
+    def _on_streams(self) -> ExitStack:
+        """A context that makes the applier's streams current on this
+        thread, one per device (a no-op on the CPU)."""
+        stack = ExitStack()
+        for stream in self._streams.values():
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    @property
+    def state(self) -> DocState:
+        """The whole farm's [D, S] state: the shards' rows concatenated on
+        the first shard's device (a copy when there are several)."""
+        if len(self._shards) == 1:
+            return self._shards[0]
+        with self._on_streams():
+            return unshard_state(self._shards)
+
+    def _locate(self, slot: int) -> tuple[DocState, int]:
+        """The shard state holding global row ``slot``, and its row there."""
+        sps = self.max_docs // len(self._shards)
+        return self._shards[slot // sps], slot % sps
+
+    def _overflow_flags(self) -> np.ndarray:
+        """Every row's overflow flag (a device→host sync per device)."""
+        with self._on_streams():
+            return np.concatenate([s.overflow.cpu().numpy()
+                                   for s in self._shards])
+
     @blocking("event.synchronize() on the step that last consumed the "
               "target staging set — the rotation fence")
     def _rotate_stage_buffers(self) -> None:
@@ -706,7 +804,8 @@ class GpuDocumentApplier:
         self._stage_flip ^= 1
         pending = self._stage_inflight[self._stage_flip]
         if pending is not None:
-            pending.synchronize()
+            for event in pending:
+                event.synchronize()
             self._stage_inflight[self._stage_flip] = None
 
     def _stage_buffer(self, shape: tuple, dtype) -> tuple:
@@ -727,10 +826,11 @@ class GpuDocumentApplier:
     @blocking("event.synchronize() on the last step — the strict-wave-"
               "order fence at escalation and width-flip seams")
     def _drain_device(self) -> None:
-        """Wait for the last enqueued step. Escalation, force_wide and
-        close must never act on a farm with a wave still executing."""
-        if self._exec_marker is not None:
-            self._exec_marker.synchronize()
+        """Wait for the last enqueued step on every device. Escalation,
+        force_wide and close must never act on a farm with a wave still
+        executing."""
+        for event in self._exec_markers:
+            event.synchronize()
 
     def _fold_step_times(self) -> None:
         """Add completed steps' card times to exec_device_seconds. Runs
@@ -743,7 +843,9 @@ class GpuDocumentApplier:
     def _stage_wave(self, parts) -> Optional[_StagedWave]:
         """The HOST half of a dispatch: concat chunks → pack_wave_rows →
         scatter into the rotating pinned buffers → asynchronous copy on
-        the applier's stream. No compute is enqueued."""
+        the applier's stream. No compute is enqueued. In mesh mode the
+        scatter targets compact per-shard buffers for ACTIVE shards only
+        (``_stage_wave_mesh``), never an O(max_docs) host array."""
         if parts is None:
             return None
         t0 = time.perf_counter()
@@ -772,7 +874,11 @@ class GpuDocumentApplier:
                   and packed.max() <= INT16_MAX)
         self._rotate_stage_buffers()
         shape = (self.max_docs, self.K, OP_FIELDS)
-        if fits16:
+        if self._mesh is not None:
+            staged = self._stage_wave_mesh(
+                flat, packed if fits16 else None, doc_idx, pos_idx,
+                slots_a, seq_base, text_base, n)
+        elif fits16:
             wave16, wave16_np = self._stage_buffer(shape, np.int16)
             wave16_np[doc_idx, pos_idx] = packed
             bases, bases_np = self._stage_buffer((self.max_docs, 2), np.int32)
@@ -781,8 +887,8 @@ class GpuDocumentApplier:
             # asynchronous copies on the applier's stream (current on
             # this thread); on the CPU .to() returns the buffer itself
             staged = _StagedWave(
-                False, (wave16.to(self.device, non_blocking=True),
-                        bases.to(self.device, non_blocking=True)),
+                "dense", False, (wave16.to(self.device, non_blocking=True),
+                                 bases.to(self.device, non_blocking=True)),
                 n, wave16_np.nbytes + bases_np.nbytes, self._stage_flip)
         else:
             # a field escaped int16 (giant doc, huge window): ship the
@@ -790,24 +896,25 @@ class GpuDocumentApplier:
             wide, wide_np = self._stage_buffer(shape, np.int32)
             wide_np[doc_idx, pos_idx] = flat
             staged = _StagedWave(
-                True, (wide.to(self.device, non_blocking=True),), n,
-                wide_np.nbytes, self._stage_flip)
+                "dense", True, (wide.to(self.device, non_blocking=True),),
+                n, wide_np.nbytes, self._stage_flip)
         dt = time.perf_counter() - t0
         # overlap accounting: this stage half counts as HIDDEN time when
         # the previous step is still executing (query() is non-blocking,
         # so the measurement never perturbs the pipeline it measures)
-        overlapped = (self._exec_marker is not None
-                      and not self._exec_marker.query())
+        overlapped = any(not e.query() for e in self._exec_markers)
         self.waves_staged += 1
         self.stage_seconds += dt
         self.stage_bytes += staged.nbytes
         if overlapped:
             self.stage_overlap_seconds += dt
+        if self._mesh is not None:
+            self.mesh_stage_seconds += dt
         reg = self._metrics()
-        reg.inc("applier.stage.seconds", dt, lane="dense")
-        reg.inc("applier.stage.bytes", staged.nbytes, lane="dense")
+        reg.inc("applier.stage.seconds", dt, lane=staged.lane)
+        reg.inc("applier.stage.bytes", staged.nbytes, lane=staged.lane)
         reg.set_gauge("applier.stage.overlap_ratio",
-                      self.stage_overlap_ratio(), lane="dense")
+                      self.stage_overlap_ratio(), lane=staged.lane)
         # applier/stage hop: wall-clock stamp at stage completion —
         # _execute_wave closes the stage→execute leg
         self._last_stage_wall = time.time()
@@ -818,40 +925,117 @@ class GpuDocumentApplier:
             self.fault_plane("applier.stage.staged", ops=n)
         return staged
 
+    def _stage_wave_mesh(self, flat, packed, doc_idx, pos_idx, slots_a,
+                         seq_base, text_base, n: int) -> _StagedWave:
+        """Mesh-lane stage: scatter the wave into per-ACTIVE-shard pinned
+        buffers and copy each to its shard's device, so host staging
+        cost and copied bytes are O(active shards · K), never
+        O(max_docs). The wave's rows are sorted by shard ONCE (each
+        shard's rows become a contiguous slice). ``packed=None`` ships
+        the int32 wide wave (int16 range escape / chaos force_wide)."""
+        sps = self.placement.slots_per_shard
+        K = self.K
+        row_shard, local_doc = self.placement.split_rows(doc_idx)
+        order = np.argsort(row_shard, kind="stable")
+        sorted_shard = row_shard[order]
+        active = np.unique(sorted_shard)
+        n_active = len(active)
+        lo = np.searchsorted(sorted_shard, active, side="left")
+        hi = np.searchsorted(sorted_shard, active, side="right")
+        ld, pi = local_doc[order], pos_idx[order]
+        wide = packed is None
+        dtype = np.int32 if wide else np.int16
+        rows = (flat if wide else packed)[order]
+        W, W_np = self._stage_buffer((n_active, sps, K, OP_FIELDS), dtype)
+        for i in range(n_active):
+            a, b = lo[i], hi[i]
+            W_np[i][ld[a:b], pi[a:b]] = rows[a:b]
+        arrays = (self._mesh_assemble(
+            {int(s): W[i] for i, s in enumerate(active)}, (K, OP_FIELDS),
+            dtype),)
+        staged_bytes = W_np.nbytes
+        if not wide:
+            B, B_np = self._stage_buffer((n_active, sps, 2), np.int32)
+            doc_shard, local_slot = self.placement.split_rows(slots_a)
+            dorder = np.argsort(doc_shard, kind="stable")
+            sorted_doc_shard = doc_shard[dorder]
+            dlo = np.searchsorted(sorted_doc_shard, active, side="left")
+            dhi = np.searchsorted(sorted_doc_shard, active, side="right")
+            ls = local_slot[dorder]
+            sb, tb = seq_base[dorder], text_base[dorder]
+            for i in range(n_active):
+                da, db = dlo[i], dhi[i]
+                B_np[i][ls[da:db], 0] = sb[da:db]
+                B_np[i][ls[da:db], 1] = tb[da:db]
+            arrays += (self._mesh_assemble(
+                {int(s): B[i] for i, s in enumerate(active)}, (2,),
+                np.int32),)
+            staged_bytes += B_np.nbytes
+        self.mesh_waves += 1
+        self.mesh_active_shards += n_active
+        self.mesh_staged_bytes += staged_bytes
+        return _StagedWave("mesh", wide, arrays, n, staged_bytes,
+                           self._stage_flip)
+
+    def _mesh_assemble(self, shard_bufs: dict, tail: tuple,
+                       dtype) -> list:
+        """The per-shard device inputs of a mesh wave: each active shard's
+        host block copied (``non_blocking``) to its device, and for every
+        INACTIVE shard a zero block already resident on its device."""
+        key = (np.dtype(dtype).str,) + tail
+        zeros = self._zero_shards.get(key)
+        if zeros is None:
+            shape = (self.placement.slots_per_shard,) + tail
+            zeros = self._zero_shards[key] = {
+                d: torch.zeros(shape, dtype=_TORCH_DTYPE[np.dtype(dtype)],
+                               device=d)
+                for d in dict.fromkeys(self._shard_devices)}
+        return [zeros[d] if s not in shard_bufs
+                else shard_bufs[s].to(d, non_blocking=True)
+                for s, d in enumerate(self._shard_devices)]
+
     def _execute_wave(self, staged: _StagedWave) -> int:
-        """The DEVICE half: enqueue the step on the applier's stream
+        """The DEVICE half: enqueue the step on the applier's streams
         (current on the calling thread) behind the wave's copies, and
-        record its completion event. With overlap on nothing waits; with
-        it off the step is fenced before returning (the serialized
-        behavior, kept for A/B)."""
+        record one completion event per device. With overlap on nothing
+        waits; with it off the step is fenced before returning (the
+        serialized behavior, kept for A/B)."""
         t0 = time.perf_counter()
-        timed = self._stream is not None
-        if timed:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(self._stream)
+        starts = {}
+        for device, stream in self._streams.items():
+            starts[device] = torch.cuda.Event(enable_timing=True)
+            starts[device].record(stream)
         if staged.wide:
-            wave = staged.arrays[0]
             self.wide_dispatches += 1
+        if staged.lane == "mesh":
+            packed_fn, wide_fn = self._sharded_step
+            fn = wide_fn if staged.wide else packed_fn
+            self._shards, _stats = fn(self._shards, *staged.arrays)
         else:
-            wave = unpack_wave16(*staged.arrays)
-        state = cuda_apply.apply_ops_batch(self.state, wave)
-        self.state = compact_batch(state, wave_min_seq(wave))
-        if timed:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(self._stream)
-            self._exec_marker = end
+            wave = (staged.arrays[0] if staged.wide
+                    else unpack_wave16(*staged.arrays))
+            state = cuda_apply.apply_ops_batch(self._shards[0], wave)
+            self._shards = [compact_batch(state, wave_min_seq(wave))]
+        if starts:
+            ends = []
+            for device, stream in self._streams.items():
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                ends.append(end)
+                self._timed_steps.append((starts[device], end))
+            self._exec_markers = ends
             # the wave's staging set may be refilled only after this
             # step (and so its copies) completes: _rotate_stage_buffers
             # fences on it
-            self._stage_inflight[staged.flip] = end
-            self._timed_steps.append((start, end))
+            self._stage_inflight[staged.flip] = ends
             if not self._overlap:
-                end.synchronize()
+                for end in ends:
+                    end.synchronize()
             self._fold_step_times()
         dt = time.perf_counter() - t0
         self.exec_seconds += dt
         reg = self._metrics()
-        reg.inc("applier.exec.seconds", dt, lane="dense")
+        reg.inc("applier.exec.seconds", dt, lane=staged.lane)
         # applier/execute hop: the dispatch-split leg of the hop
         # breakdown, observed directly into the hop family and retained
         # as last_wave_hops for a host that forwards the stamps
@@ -878,8 +1062,7 @@ class GpuDocumentApplier:
 
     def _check_overflow(self) -> None:
         self._dispatches_since_check = 0
-        with torch.cuda.stream(self._stream):
-            flags = self.state.overflow.cpu().numpy()  # device→host sync
+        flags = self._overflow_flags()
         for slot in np.nonzero(flags)[0]:
             if int(slot) not in self._host_docs:
                 self._escalate(int(slot), None, None)
@@ -897,16 +1080,17 @@ class GpuDocumentApplier:
             self._check_overflow()
 
     def _row(self, slot: int) -> dict:
-        """Doc ``slot``'s state fields as numpy arrays."""
-        with torch.cuda.stream(self._stream):
-            return {f: getattr(self.state, f)[slot].cpu().numpy()
-                    for f in FIELDS}
+        """Doc ``slot``'s state fields as numpy arrays, read from its
+        shard."""
+        shard, row = self._locate(slot)
+        with self._on_streams():
+            return {f: getattr(shard, f)[row].cpu().numpy() for f in FIELDS}
 
     def slot_count(self, tenant_id: str, document_id: str) -> int:
         """Live device slots of a doc (bounded under churn by zamboni)."""
-        slot = self.slot_of(tenant_id, document_id)
-        with torch.cuda.stream(self._stream):
-            return int(self.state.count[slot])
+        shard, row = self._locate(self.slot_of(tenant_id, document_id))
+        with self._on_streams():
+            return int(shard.count[row])
 
     def get_text(self, tenant_id: str, document_id: str) -> str:
         slot = self.slot_of(tenant_id, document_id)
@@ -928,9 +1112,10 @@ class GpuDocumentApplier:
         self._sync(slot)
         if slot in self._host_docs:
             return self._host_docs[slot]
-        with torch.cuda.stream(self._stream):
-            tree = decode_state(self.state, self.arenas[slot],
-                                self.prop_table, doc=slot)
+        shard, row = self._locate(slot)
+        with self._on_streams():
+            tree = decode_state(shard, self.arenas[slot], self.prop_table,
+                                doc=row)
         replica = MergeTreeClient(f"gpu-applier/{tenant_id}/{document_id}",
                                   blocked=False)
         replica.tree = tree
@@ -1050,13 +1235,17 @@ def save_applier_checkpoint(applier: GpuDocumentApplier, path: str) -> dict:
     Calls ``finalize()`` first, so the state is fenced (an async
     applier's worker is drained, and a stored worker exception raises
     here before anything is written). The state is read back on the
-    applier's stream. Returns the save's costs: ``readback_seconds``
+    applier's streams, shard by shard: rows stay shard-major, so the file
+    is the JAX package's in either direction. Returns the save's costs:
+    ``readback_seconds``
     (device to host), ``write_seconds`` (compress and write both files)
     and ``npz_bytes``."""
     applier.finalize()
     t0 = time.perf_counter()
-    with torch.cuda.stream(applier._stream):
-        arrays = {f: getattr(applier.state, f).cpu().numpy() for f in FIELDS}
+    with applier._on_streams():
+        arrays = {f: np.concatenate([getattr(s, f).cpu().numpy()
+                                     for s in applier._shards])
+                  for f in FIELDS}
     t1 = time.perf_counter()
     meta = {
         "max_docs": applier.max_docs,
@@ -1106,25 +1295,38 @@ def load_applier_checkpoint(path: str, **applier_kwargs
                             ) -> GpuDocumentApplier:
     """Rebuild a fenced applier from a checkpoint written by
     ``save_applier_checkpoint`` in either package. ``applier_kwargs`` go
-    to ``GpuDocumentApplier`` (``device`` defaults to ``cuda``); the
-    geometry comes from the file, so the pinned staging sets are sized by
-    its ``max_docs``. The state tensors are made on the applier's stream.
+    to ``GpuDocumentApplier`` (``device`` defaults to ``cuda``; ``mesh``
+    re-shards the state over the mesh); the geometry comes from the file,
+    so the pinned staging sets are sized by its ``max_docs``. The state
+    tensors are made on the applier's streams.
 
-    A placement of several shards loads as the JAX applier loads it
-    without a mesh: rows stay shard-major on the one device."""
+    Without a mesh, a placement of several shards loads as the JAX
+    applier loads it: rows stay shard-major on the one device. With a
+    mesh, a placement of another shard count is refused (ValueError, the
+    JAX text): shard-major rows would route every doc to the wrong
+    shard."""
     with open(path + ".json") as f:
         meta = json.load(f)
     applier = GpuDocumentApplier(max_docs=meta["max_docs"],
                                  max_slots=meta["max_slots"],
                                  **applier_kwargs)
+    placement = DocPlacement.load(meta["placement"])
+    if applier._mesh is not None and \
+            placement.n_shards != applier.placement.n_shards:
+        applier.close()
+        raise ValueError(
+            f"checkpoint placement has {placement.n_shards} shards but "
+            f"the mesh's docs axis is {applier.placement.n_shards}")
     # generation-named arrays (crash-atomic saver); plain ".npz" is the
     # legacy single-generation layout
     npz_path = (f"{path}.g{meta['gen']}.npz" if "gen" in meta
                 else path + ".npz")
     with np.load(npz_path) as data:
         arrays = {k: data[k] for k in data.files}
-    with torch.cuda.stream(applier._stream):
-        applier.state = state_from_numpy(arrays, applier.device)
+    with applier._on_streams():
+        state = state_from_numpy(arrays, applier.device)
+        applier._shards = (shard_state(state, applier._mesh)
+                           if applier._mesh is not None else [state])
     for slot, text in enumerate(meta["arenas"]):
         arena = TextArena()
         if text:
@@ -1135,7 +1337,7 @@ def load_applier_checkpoint(path: str, **applier_kwargs
                            for k, v in meta["client_ids"].items()}
     applier._doc_keys = {int(k): tuple(v)
                          for k, v in meta["doc_keys"].items()}
-    applier.placement = DocPlacement.load(meta["placement"])
+    applier.placement = placement
     for k, snap in meta["host_docs"].items():
         tenant_id, document_id = meta["host_doc_names"][k]
         applier._host_docs[int(k)] = MergeTreeClient.load(

@@ -34,18 +34,21 @@ MIX = dict(remove_fraction=0.4, annotate_fraction=0.1, max_insert=8)
 SHAPES = ((42, 1024, 256, 32), (42, 8192, 256, 64))
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, queue: bool = True) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, queue: bool = True,
+            sleep_cycles: int = 40_000_000) -> float:
     """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events.
-    With ``queue``, the stream first sleeps on the card (~20 ms) while
-    the host enqueues every run, so that host time between launches
-    does not count as device time."""
+    With ``queue``, the stream first sleeps on the card (``sleep_cycles``,
+    ~20 ms by default) while the host enqueues every run, so that host
+    time between launches does not count as device time: the sleep must
+    outlast the enqueue, and the runs' launches must fit the launch
+    queue."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queue:
-        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at 2 GHz
+        torch.cuda._sleep(sleep_cycles)  # 40M cycles: ~20 ms at 2 GHz
     start.record()
     for _ in range(reps):
         fn()

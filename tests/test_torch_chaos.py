@@ -7,7 +7,8 @@ the socket transport's hook, which the port does not have), run on the
 port; the quick phase-A soak and its two self-tests with the device
 stage's applier on the CPU; and the port's seed-0 quick soak against the
 JAX package's: the same coverage, observed and redelivered counts, chaos
-counters and final fingerprints of every replica, exactly.
+counters and final fingerprints of every replica, exactly, with the
+stage's farm dense and over a 2-shard mesh.
 """
 
 import json
@@ -352,15 +353,13 @@ def test_soak_fails_when_recovery_disabled():
 def test_soak_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="A8"):
         run_soak(seed=0, quick=True, phases="ab", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_soak(seed=0, quick=True, mesh_shards=2, device="cpu")
     # the device stage runs on the card unless told otherwise
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_soak(seed=0, quick=True)
 
 
-def _soak(pkg: str, seed: int, monkeypatch) -> dict:
+def _soak(pkg: str, seed: int, monkeypatch, mesh_shards: int = 0) -> dict:
     """One quick phase-A soak of ``pkg``, with the fingerprints every
     replica reached at quiescence (captured at the monitor's final
     gate)."""
@@ -380,7 +379,8 @@ def _soak(pkg: str, seed: int, monkeypatch) -> dict:
     monkeypatch.setattr(monitor.InvariantMonitor, "check_quiescent",
                         capture)
     kw = {"device": "cpu"} if pkg == "torch" else {}
-    out = soak.run_soak(seed=seed, quick=True, phases="a", **kw)
+    out = soak.run_soak(seed=seed, quick=True, phases="a",
+                        mesh_shards=mesh_shards, **kw)
     return {"coverage": out["coverage"], "observed": out["observed"],
             "redelivered": out["redelivered"],
             "counters": out["counters"], "fingerprints": fps}
@@ -395,6 +395,22 @@ def test_soak_seed0_equals_jax(monkeypatch):
     assert len(set(got["fingerprints"].values())) == 1
     assert set(got["fingerprints"]) == {"client0", "client1", "client2",
                                         "device", "oracle"}
+
+
+def test_soak_mesh_equals_jax(monkeypatch):
+    """The stage's farm over a 2-shard mesh (both shards on the CPU)
+    against the JAX soak's over 2 virtual devices: the same coverage,
+    counts, counters and fingerprints."""
+    got = _soak("torch", 0, monkeypatch, mesh_shards=2)
+    want = _soak("jax", 0, monkeypatch, mesh_shards=2)
+    assert got == want
+    assert set(got["coverage"]) == {"log", "fanout", "stage", "device",
+                                    "history"}
+    assert len(set(got["fingerprints"].values())) == 1
+    # and a mesh of cards is refused on a machine without them
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
+        run_soak(seed=0, quick=True, mesh_shards=2)
 
 
 @pytest.mark.slow

@@ -10,7 +10,9 @@ applied and first seqs, anchors and restore windows must agree, and what
 each package writes back must be equal member by member), and check the
 crash-atomic generations, a warm restart that keeps ingesting the live
 stream, the restore window across a save/load/save/load cycle, and that a
-checkpoint of a failed async applier raises before writing.
+checkpoint of a failed async applier raises before writing. Checkpoints
+of mesh appliers cross both ways and re-shard on load, and both packages
+refuse a mesh of another shard count with one message.
 """
 
 import json
@@ -218,6 +220,68 @@ def test_multi_shard_placement_loads_like_jax(tmp_path):
     for doc in DOCS[:4]:
         assert port.get_text("bench", doc) == jax.get_text("bench", doc)
     assert port.slot_of("bench", "late") == jax.slot_of("bench", "late")
+
+
+def _mesh_checkpoint(writer: str, tmp_path, n_shards: int = 2) -> str:
+    """A checkpoint written by ``writer``'s applier over a mesh of
+    ``n_shards`` docs shards (0: the dense lane) after a run_inproc."""
+    from fluidframework_tpu.parallel.mesh import make_mesh
+
+    if writer == "port":
+        kw = {"mesh": n_shards} if n_shards else {}
+        app = GpuDocumentApplier(device="cpu", **kw, **GEOMETRY)
+        run_inproc(seed=5, array_lane=True, applier=app, **RUN)
+        save = save_applier_checkpoint
+    else:
+        kw = {"mesh": make_mesh(n_shards, seg_shards=1)} if n_shards else {}
+        app = TpuDocumentApplier(kernel="xla", **kw, **GEOMETRY)
+        jax_run_inproc(seed=5, array_lane=True, applier=app, **RUN)
+        save = jax_save
+    path = str(tmp_path / f"{writer}-mesh{n_shards}")
+    save(app, path)
+    return path
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_mesh_checkpoint_crosses_packages(tmp_path, writer):
+    """A mesh applier's checkpoint (rows shard-major) loads re-sharded
+    into either package's 2-shard mesh with the same docs, and what each
+    writes back is the same checkpoint."""
+    from fluidframework_tpu.parallel.mesh import make_mesh
+
+    path = _mesh_checkpoint(writer, tmp_path)
+    port = load_applier_checkpoint(path, mesh=2, device="cpu")
+    jax = jax_load(path, kernel="xla", mesh=make_mesh(2, seg_shards=1))
+    assert port.placement.n_shards == 2 and len(port._shards) == 2
+    views = {doc: _doc_view(jax, doc) for doc in DOCS}
+    for doc in DOCS:
+        assert _doc_view(port, doc) == views[doc], doc
+    assert all(v[0] for v in views.values())
+    save_applier_checkpoint(port, str(tmp_path / "port-out"))
+    jax_save(jax, str(tmp_path / "jax-out"))
+    port_meta, port_arrays = _files(str(tmp_path / "port-out"))
+    jax_meta, jax_arrays = _files(str(tmp_path / "jax-out"))
+    assert port_meta == jax_meta
+    assert list(port_arrays) == list(jax_arrays)
+    for name, want in jax_arrays.items():
+        got = port_arrays[name]
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+
+
+def test_mesh_refuses_another_shard_count_like_jax(tmp_path):
+    """A mesh whose docs axis differs from the checkpoint's placement is
+    refused by both packages with one message: a 2-shard checkpoint onto
+    1- and 4-shard meshes, and a dense one onto a 2-shard mesh."""
+    from fluidframework_tpu.parallel.mesh import make_mesh
+
+    for shards, n in ((2, 1), (2, 4), (0, 2)):
+        path = _mesh_checkpoint("port", tmp_path, n_shards=shards)
+        with pytest.raises(ValueError) as port_err:
+            load_applier_checkpoint(path, mesh=n, device="cpu")
+        with pytest.raises(ValueError) as jax_err:
+            jax_load(path, kernel="xla", mesh=make_mesh(n, seg_shards=1))
+        assert str(port_err.value) == str(jax_err.value)
+        assert "shards but the mesh's docs axis is" in str(port_err.value)
 
 
 # ----------------------------------------------------- the port's own file

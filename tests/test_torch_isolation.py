@@ -64,6 +64,17 @@ HISTORY_AND_CHAOS = ("protocol/refgraph.py", "obs/journal.py",
                      "chaos/soak.py")
 
 
+#: the parallel layer: the doc-sharded mesh and the giant-doc lane
+PARALLEL = ("parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharded_apply.py", "parallel/long_doc.py",
+            "parallel/placement.py")
+
+
+def test_sources_cover_the_parallel_layer():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(PARALLEL)
+
+
 def test_sources_cover_the_read_side():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(READ_SIDE)
@@ -96,6 +107,21 @@ def test_kernel_path_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel"):
         cuda_apply.launch(state, ops)
     assert cuda_apply.LAUNCHES == before
+
+
+def test_mesh_step_refuses_cpu_kernel_launch():
+    """On the card's path the mesh step launches B1 or raises: a CUDA
+    state with CPU ops never falls back to the plain version."""
+    from fluidframework_tpu_torch.parallel import make_mesh
+    from fluidframework_tpu_torch.parallel.sharded_apply import _apply_local
+
+    state = DocState.empty(2, 8, device="cpu")
+    state.length = state.length.to("meta")
+    before = cuda_apply.LAUNCHES
+    with pytest.raises(ValueError):
+        _apply_local(state, torch.zeros((2, 4, 12), dtype=torch.int32))
+    assert cuda_apply.LAUNCHES == before
+    assert make_mesh(devices=["cpu"]).shape == {"docs": 1, "seg": 1}
 
 
 def test_no_device_means_cuda(monkeypatch):
