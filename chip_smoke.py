@@ -44,6 +44,14 @@ the mesh step against the dense step and the 1-shard mesh against the
 dense lane. ``long_doc`` runs one giant doc through the segment-sharded
 apply at 8 x 128 slots (against B1 at S=1024 and the plain version) and
 8 x 4096 (against the plain version).
+Then the network tier: ``network`` runs the production composition as
+processes of the port (the core ``service.front_end --log-dir
+--consume-backchannel``, two native ``service.gateway`` relays, the
+applier stage child on the card at D=1024, S=256) under four
+``service.load_async`` workers (1024 docs x 2 clients, half through the
+gateways, 98,304 ops at 4 Hz), then holds the stage's farm against a CPU
+applier fed the core's durable log, boots 64 summarized docs over the
+network and replays three fetched live docs on the card and the CPU.
 Each phase prints one JSON line (the last one, each phase's seconds); any
 failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
@@ -670,14 +678,6 @@ def phase_stage(cpu_texts: list, power: str, device: str = "cuda"):
     return launches
 
 
-#: the split deployment's stage process: an ApplierStage at the service
-#: geometry (the command line's ``main`` builds 64 docs)
-STAGE_CHILD = """
-import sys
-from fluidframework_tpu_torch.service.stage_runner import ApplierStage
-ApplierStage(sys.argv[1], sys.argv[2], max_docs=int(sys.argv[3]),
-             max_slots=int(sys.argv[4]), device=sys.argv[5]).run_forever()
-"""
 #: core records between flushes: a stage process sees only flushed records
 SPLIT_FLUSH_EVERY = 64
 CHILD_TIMEOUT_S = 120.0
@@ -727,9 +727,12 @@ class _StageProcess:
         self.started = time.perf_counter()
         self.err = open(err_path, "a")
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", STAGE_CHILD, log_dir, state_dir,
-             str(SERVICE_GEO["max_docs"]), str(SERVICE_GEO["max_slots"]),
-             device],
+            [sys.executable, "-m",
+             "fluidframework_tpu_torch.service.stage_runner", "--stage",
+             "applier", "--log-dir", log_dir, "--state-dir", state_dir,
+             "--device", device,
+             "--max-docs", str(SERVICE_GEO["max_docs"]),
+             "--max-slots", str(SERVICE_GEO["max_slots"])],
             cwd=HERE,
             stdout=subprocess.PIPE, stderr=self.err, text=True)
         ready = []
@@ -1905,6 +1908,351 @@ def phase_replay(power: str, device: str = "cuda"):
     return launches
 
 
+#: the network phase: the service run's width over sockets. Four
+#: load_async workers of 256 docs x 2 clients, two through the gateways
+#: and two direct, 4 boxcars of 12 a client at 4 Hz (98,304 ops)
+NETWORK_RUN = dict(workers=4, docs_per_worker=256, clients_per_doc=2,
+                   rounds=4, batch=12, rate=4.0)
+#: wall seconds between the last worker's CONNECTED and the start instant
+#: handed to every worker (the barrier of ``load_async --start-gate``)
+NETWORK_START_MARGIN_S = 1.0
+NETWORK_BOOTS = 64
+NETWORK_FETCHES = 3
+
+
+def _spawn_ready(args: list, ready: str, err_path: str, what: str):
+    """A ``python -m`` child of the port; returns (process, its readiness
+    line) once it prints ``ready``, or fails the phase."""
+    err = open(err_path, "a")
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line = []
+    reader = threading.Thread(
+        target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(CHILD_TIMEOUT_S)
+    if not line or not line[0].startswith(ready):
+        proc.kill()
+        proc.wait(timeout=60)
+        fail(f"network: {what} did not print {ready} (got {line}, rc "
+             f"{proc.poll()}); stderr in {err_path}")
+    return proc, line[0].strip()
+
+
+def _pct(vals: list, p: float) -> float:
+    vals = sorted(vals)
+    return vals[int(p * (len(vals) - 1))] if vals else 0.0
+
+
+def _network_statuses(rpc, docs: list) -> dict:
+    """doc → (seq at the core, applierSeq) from the core's status RPC."""
+    out = {}
+    for doc in docs:
+        st = rpc.request({"t": "admin_status", "tenant": "bench",
+                          "doc": doc})["status"]
+        out[doc] = (st["seq"], st["applierSeq"])
+    return out
+
+
+def _cpu_seconds(pid: int) -> float:
+    """User plus system CPU seconds a process has used so far."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def phase_network(power: str, device: str = "cuda"):
+    """The production composition over sockets, every process the
+    port's: the core (``front_end --log-dir L --consume-backchannel S``),
+    two native gateways (``gateway --core-port P``), the applier stage
+    child on the card (``stage_runner --stage applier --device cuda`` at
+    D=1024, S=256) and four ``load_async`` workers. Checks: every op
+    acked; once quiescent every doc's ``applierSeq`` (the core's status
+    RPC) at its seq; the stage's final checkpoint, loaded on the card,
+    escalated nothing and equals a CPU applier fed the core's durable
+    log; 64 docs summarized by the core and booted by network loaders
+    (one through a gateway) read those texts; three live docs fetched
+    with ``replay.fetch`` replay through ``replay_through_applier`` on
+    the card to the texts of a CPU replay. Returns B1's launches of those
+    replays (the stage child's launches are its own)."""
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+        _Transport,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.obs import parse_prometheus
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.replay import replay_through_applier
+    from fluidframework_tpu_torch.replay.fetch import fetch_document
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+    from fluidframework_tpu_torch.service.stage_runner import ApplierStage
+
+    run = NETWORK_RUN
+    docs = [f"netw{w}d{d}" for w in range(run["workers"])
+            for d in range(run["docs_per_worker"])]
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    err_path = os.path.join(out_dir, "network_stderr.txt")
+    procs = []
+    row = {"phase": "network", "docs": len(docs), **run}
+    t_phase = time.perf_counter()
+    try:
+        with _scratch_dir() as tmp:
+            log_dir, state_dir = (os.path.join(tmp, "log"),
+                                  os.path.join(tmp, "state"))
+            t0 = time.perf_counter()
+            stage, _ = _spawn_ready(
+                ["fluidframework_tpu_torch.service.stage_runner", "--stage",
+                 "applier", "--log-dir", log_dir, "--state-dir", state_dir,
+                 "--device", device,
+                 "--max-docs", str(SERVICE_GEO["max_docs"]),
+                 "--max-slots", str(SERVICE_GEO["max_slots"])],
+                "READY", err_path, "the applier stage")
+            procs.append(stage)
+            row["stage_start_seconds"] = time.perf_counter() - t0
+            core, line = _spawn_ready(
+                ["fluidframework_tpu_torch.service.front_end", "--port", "0",
+                 "--log-dir", log_dir, "--consume-backchannel", state_dir],
+                "LISTENING", err_path, "the core")
+            procs.append(core)
+            core_port = int(line.rsplit(":", 1)[1])
+            t0 = time.perf_counter()
+            gw_ports = []
+            lib = str(native_build.build("gateway"))
+            for _ in range(2):
+                gw, line = _spawn_ready(
+                    ["fluidframework_tpu_torch.service.gateway",
+                     "--core-port", str(core_port)],
+                    "LISTENING", err_path, "a gateway")
+                procs.append(gw)
+                gw_ports.append(int(line.rsplit(":", 1)[1]))
+                with open(f"/proc/{gw.pid}/maps") as f:
+                    if lib not in f.read():
+                        fail("network: a gateway does not run the native "
+                             f"relay ({lib} not mapped)")
+            row["gateways_start_seconds"] = time.perf_counter() - t0
+            row["gateways_native"] = True
+
+            # the load: every worker connects all its clients and says
+            # so; only then is one start instant handed to all of them,
+            # so no worker's trial runs against another's join storm
+            ports = [gw_ports[0], gw_ports[1], core_port, core_port]
+            servers = {"core": core.pid, "gateway0": procs[2].pid,
+                       "gateway1": procs[3].pid, "stage": stage.pid}
+            t0 = time.perf_counter()
+            workers = []
+            for w in range(run["workers"]):
+                wp = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "fluidframework_tpu_torch.service.load_async",
+                     "--port", str(ports[w]),
+                     "--docs", str(run["docs_per_worker"]),
+                     "--clients-per-doc", str(run["clients_per_doc"]),
+                     "--rounds", str(run["rounds"]),
+                     "--batch", str(run["batch"]),
+                     "--rate", str(run["rate"]), "--seed", str(w),
+                     "--start-gate", "--timeout", "180",
+                     "--doc-prefix", f"netw{w}d"],
+                    cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=open(err_path, "a"), text=True)
+                procs.append(wp)
+                workers.append(wp)
+            said = [[] for _ in workers]
+            readers = [threading.Thread(
+                target=lambda wp=wp, got=got: got.append(
+                    wp.stdout.readline()), daemon=True)
+                for wp, got in zip(workers, said)]
+            for r in readers:
+                r.start()
+            for r in readers:
+                r.join(max(1.0, CHILD_TIMEOUT_S - (time.perf_counter()
+                                                   - t0)))
+            for w, got in enumerate(said):
+                if not got or got[0].strip() != "CONNECTED":
+                    fail(f"network: load worker {w} did not connect (got "
+                         f"{got}, rc {workers[w].poll()}); stderr in "
+                         f"{err_path}")
+            row["connect_seconds"] = time.perf_counter() - t0
+            # the servers' CPU over the load alone (connects excluded):
+            # a busy share near 1 is a saturated loop
+            cpu0 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+            start_at = time.time() + NETWORK_START_MARGIN_S
+            for wp in workers:
+                wp.stdin.write(f"{start_at!r}\n")
+                wp.stdin.close()
+            results = []
+            for w, wp in enumerate(workers):
+                out = wp.stdout.read()
+                wp.wait(timeout=300)
+                if wp.returncode != 0 or not out.strip():
+                    fail(f"network: load worker {w} failed (rc "
+                         f"{wp.returncode}); stderr in {err_path}")
+                results.append(json.loads(out.strip().splitlines()[-1]))
+            cpu1 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+            for w, r in enumerate(results):
+                if r["acked"] != r["ops"] or r["errors"]:
+                    fail(f"network: worker {w} acked {r['acked']} of "
+                         f"{r['ops']} ops ({r['errors'][:2]})")
+            ops = sum(r["ops"] for r in results)
+            if ops != len(docs) * run["clients_per_doc"] * run["rounds"] \
+                    * run["batch"]:
+                fail(f"network: {ops} ops submitted")
+            # all the work over the whole window: the earliest first
+            # submit to the last ack of any worker
+            last_ack = max(r["ended_at"] for r in results)
+            seconds = last_ack - min(r["started_at"] for r in results)
+            late_s = max(r["late_s"] for r in results)
+            lat = [x for r in results for x in r["lat_ms"]]
+            gw_lat = [x for r in results[:2] for x in r["lat_ms"]]
+            direct_lat = [x for r in results[2:] for x in r["lat_ms"]]
+            row.update(
+                ops=ops, seconds=seconds, ops_per_sec=ops / seconds,
+                late_s=late_s, tainted=late_s > 0,
+                p50_ack_ms=_pct(lat, 0.50), p99_ack_ms=_pct(lat, 0.99),
+                direct_p50_ack_ms=_pct(direct_lat, 0.50),
+                direct_p99_ack_ms=_pct(direct_lat, 0.99),
+                gateway_p50_ack_ms=_pct(gw_lat, 0.50),
+                gateway_p99_ack_ms=_pct(gw_lat, 0.99))
+            # the sampled boxcars' hop legs (every 16th boxcar a client)
+            hops: dict = {}
+            for r in results:
+                for name, vals in r["hops"].items():
+                    hops.setdefault(name, []).extend(vals)
+            row["hops"] = {name: {"count": len(v), "p50_ms": _pct(v, 0.5),
+                                  "p99_ms": _pct(v, 0.99)}
+                           for name, v in sorted(hops.items())}
+            row["load_window_seconds"] = seconds
+            row["cpu_seconds"] = {k: cpu1[k] - cpu0[k] for k in servers}
+
+            # quiescence: every doc's applierSeq reaches its seq
+            rpc = _Transport("127.0.0.1", core_port, timeout=60.0)
+            try:
+                while True:
+                    status = _network_statuses(rpc, docs)
+                    lagging = [d for d, (seq, app) in status.items()
+                               if app != seq]
+                    if not lagging:
+                        break
+                    if time.time() - last_ack > CHILD_TIMEOUT_S:
+                        fail(f"network: {len(lagging)} docs' applierSeq "
+                             f"lag the core (first {lagging[0]}: "
+                             f"{status[lagging[0]]})")
+                    time.sleep(0.05)
+                row["catch_up_lag_seconds"] = time.time() - last_ack
+                scrape = parse_prometheus(rpc.request(
+                    {"t": "admin_metrics_scrape"})["scrape"])
+                hop = {"count": 0}
+                for key, v in scrape.get("fluid_obs_hop_ms_count",
+                                         {}).items():
+                    if dict(key).get("pair") == "stage_to_execute":
+                        hop["count"] = int(v)
+                for key, v in scrape.get("fluid_obs_hop_ms", {}).items():
+                    labels = dict(key)
+                    if labels.get("pair") == "stage_to_execute":
+                        hop[f"p{round(float(labels['quantile']) * 100)}"
+                            "_ms"] = v
+                if not hop["count"]:
+                    fail("network: the stage reported no stage_to_execute "
+                         "hop (no wave ran in the stage child)")
+                row["stage_to_execute"] = hop
+                counters = rpc.request({"t": "admin_counters"})["counters"]
+                row["core_counters"] = {
+                    k: counters.get(k) for k in (
+                        "net.ingress.frames", "net.ingress.batches",
+                        "net.ingress.columnar", "net.flush.performed",
+                        "net.fanout.encodes", "net.fanout.cache_hits")}
+                stage.send_signal(signal.SIGTERM)
+                stage.wait(timeout=60)
+
+                # the stage's farm against a CPU applier fed the core's log
+                t0 = time.perf_counter()
+                farm = load_applier_checkpoint(
+                    os.path.join(state_dir, "applier"), device=device)
+                if farm.host_escalations or farm._host_docs:
+                    fail("network: the stage escalated docs")
+                texts = {d: farm.get_text("bench", d) for d in docs}
+                ref = ApplierStage(log_dir, os.path.join(tmp, "cpu"),
+                                   max_docs=SERVICE_GEO["max_docs"],
+                                   max_slots=SERVICE_GEO["max_slots"],
+                                   device="cpu")
+                while ref.run_once():
+                    pass
+                bad = [d for d in docs
+                       if ref.applier.get_text("bench", d) != texts[d]]
+                if bad:
+                    fail(f"network: {len(bad)} docs of the stage's farm "
+                         f"differ from the CPU applier (first {bad[0]})")
+                ref.shared.close()
+                row["farm_check_seconds"] = time.perf_counter() - t0
+
+                # summaries by the core, then network boots of 64 docs
+                t0 = time.perf_counter()
+                sample = docs[::len(docs) // NETWORK_BOOTS]
+                for doc in sample:
+                    rpc.request({"t": "admin_summarize", "tenant": "bench",
+                                 "doc": doc})
+                row["summarize_seconds"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for i, doc in enumerate(sample):
+                    port = gw_ports[0] if i == 0 else core_port
+                    c = Loader(NetworkDocumentServiceFactory(
+                        "127.0.0.1", port)).resolve("bench", doc)
+                    got = c.runtime.get_data_store("default").get_channel(
+                        "text").get_text()
+                    c.close()
+                    if got != texts[doc]:
+                        fail(f"network: the boot of {doc} (port {port}) "
+                             "reads another text than the stage's farm")
+                row["boots"] = len(sample)
+                row["boot_seconds"] = time.perf_counter() - t0
+            finally:
+                rpc.close()
+
+            # three live docs fetched and replayed on the card and the CPU
+            fetched = [d for d in (docs[1], docs[len(docs) // 2 + 3],
+                                   docs[-1]) if d not in sample]
+            if len(fetched) != NETWORK_FETCHES:
+                fail("network: a fetched doc is also a summarized one")
+            t0 = time.perf_counter()
+            dirs = [fetch_document("127.0.0.1", core_port, "bench", d,
+                                   os.path.join(tmp, "fetch"))
+                    for d in fetched]
+            row["fetch_seconds"] = time.perf_counter() - t0
+            if device == "cuda":
+                torch.cuda.synchronize()
+            cuda_apply.LAUNCHES = 0
+            card = [replay_through_applier(p, device=device) for p in dirs]
+            launches = cuda_apply.LAUNCHES
+            cpu = [replay_through_applier(p, device="cpu") for p in dirs]
+            for d, a, b in zip(fetched, card, cpu):
+                if not (a == b == texts[d]):
+                    fail(f"network: the fetched replay of {d} differs "
+                         "(card, CPU, stage's farm)")
+            if launches < len(dirs):
+                fail(f"network: {launches} kernel launches for "
+                     f"{len(dirs)} replays")
+            row.update(fetched=fetched, replay_launches=launches,
+                       texts_match_cpu=True, boots_match=True,
+                       replays_match=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    row["card"] = power
+    emit(row)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -1967,6 +2315,7 @@ def main() -> None:
         held.card.close()  # re-raises a worker exception: the run fails
     launches += timed(phase_soak, power)
     launches += timed(phase_replay, power)
+    launches += timed(phase_network, power)
     launches += timed(phase_mesh, power)
     timed(phase_long_doc, power)
     emit({"phase": "seconds", **seconds})

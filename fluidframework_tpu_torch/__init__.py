@@ -22,6 +22,11 @@ is ported too: ``service.service_summarizer.ServiceSummarizer`` writes
 summaries from the farm into the server's storage, the client stack
 (``loader``, ``runtime``, ``dds``, ``driver``) boots from them, and
 ``replay`` replays recorded documents through the client stack and the
-farm. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+farm. The network tier serves it all over sockets:
+``service.front_end.NetworkFrontEnd`` (the core, optionally over a
+durable log and consuming an applier stage's backchannel), relay
+``service.gateway`` processes (native by default, ``csrc/gateway.cpp``),
+the network driver (``driver.network``) and the socket load
+(``service.load_async``). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """

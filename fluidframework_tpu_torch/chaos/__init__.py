@@ -2,7 +2,7 @@
 
 JAX counterpart: ``fluidframework_tpu/chaos``. The port carries the fault
 plane, the invariant monitor, the seam installers (without the socket
-transport's hook, which comes with the network tier, ROADMAP A8) and soak
+transport's hook, which comes with soak phase B, ROADMAP A8) and soak
 phase A with its ``DeviceStage`` on the card. Soak phase B and the other
 campaigns (migrate, noisy, rebalance, coldstart, multihost) are not
 ported yet (ROADMAP A8, A10).

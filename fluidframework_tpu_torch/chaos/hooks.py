@@ -2,9 +2,9 @@
 
 JAX counterpart: ``fluidframework_tpu/chaos/hooks.py``; the port's copy,
 imports rebased to this package, without the socket transport's frame
-hook (``transports=True``), which comes with the network driver
-(ROADMAP A8), and without the sharded core's partitions and the front
-end's snapshot seam (A10, A8).
+hook (``transports=True``) and the front end's snapshot seam, which
+come with soak phase B (ROADMAP A8), and without the sharded core's
+partitions (A10).
 
 Every seam is a duck-typed ``fault_plane`` attribute (``None`` when
 disarmed — one predictable branch on the hot path). The service never

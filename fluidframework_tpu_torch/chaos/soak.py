@@ -6,8 +6,8 @@ a ``GpuDocumentApplier`` on ``cuda`` unless given ``device="cpu"``.
 ``mesh_shards=n`` runs that applier over a doc-sharded mesh of n shards,
 all on the stage's device when one is named, else on n cards (too few
 cards raise; no virtual devices are forced). Phase B (socket clients, a
-relay-tier gateway, the snapshot plane's served chunks) comes with the
-network tier (ROADMAP A8) and raises ``NotImplementedError``.
+relay-tier gateway, the snapshot plane's served chunks) is the rest of
+ROADMAP A8 and raises ``NotImplementedError``.
 
 ``python -m fluidframework_tpu_torch.chaos.soak --seed N [--quick]
 [--device cpu] [--mesh-shards N]`` runs phase A and asserts every

@@ -1,8 +1,8 @@
 """Configuration registry of the port.
 
 JAX counterpart: ``fluidframework_tpu/config.py::Config``. This is a copy
-of the fields that the port's service pipeline, replica farm and client
-stack read, with the same defaults and the same environment layer
+of the fields that the port's service pipeline, front door, replica farm
+and client stack read, with the same defaults and the same environment layer
 (``FLUID_TPU_<FIELD>``, so one deployment setting drives both packages).
 A config resolves by layering defaults ← explicit overrides ←
 environment.
@@ -23,6 +23,9 @@ class Config:
 
     # ---- service: deli sequencer (ref: deli/lambdaFactory.ts:29-37)
     client_timeout_s: float = 300.0      # idle-client eviction
+    # ---- service: front door (ref: localDeltaConnectionServer.ts:96)
+    max_message_size: int = 16 * 1024    # per-op cap, larger ops nacked
+    max_buffered_bytes: int = 32 * 1024 * 1024  # slow-consumer drop bound
     # ---- service: replica farm geometry (ops/doc_state + gpu_applier)
     applier_max_docs: int = 256          # device doc slots [D]
     applier_max_slots: int = 256         # segment slots per doc [S]

@@ -9,10 +9,11 @@ A document service exposes three sub-services (driver-definitions):
 - storage           — snapshots/blobs (historian/git analog)
 
 ``local`` binds them straight to an in-proc LocalServer (the local-driver
-test backbone, packages/drivers/local-driver); ``file`` serves a recorded
-document read-only (the replay tool's driver); ``history`` is the local
-history client over the doc history plane. The network driver and its
-history client are not ported yet (ROADMAP A8).
+test backbone, packages/drivers/local-driver); ``network`` speaks the
+socket wire to a ``NetworkFrontEnd`` or a gateway; ``file`` serves a
+recorded document read-only (the replay tool's driver); ``history`` holds
+the history clients over the doc history plane, local and over the
+network's ``history_*`` doors.
 """
 
 from .definitions import (
@@ -23,7 +24,9 @@ from .definitions import (
     DocumentStorage,
 )
 from .file import FileDocumentService, FileDocumentServiceFactory
+from .history import HistoryClient, LocalHistoryClient, NetworkHistoryClient
 from .local import LocalDocumentServiceFactory
+from .network import NetworkDocumentService, NetworkDocumentServiceFactory
 
 __all__ = [
     "DocumentDeltaConnection",
@@ -33,5 +36,10 @@ __all__ = [
     "DocumentStorage",
     "FileDocumentService",
     "FileDocumentServiceFactory",
+    "HistoryClient",
+    "LocalHistoryClient",
     "LocalDocumentServiceFactory",
+    "NetworkDocumentService",
+    "NetworkDocumentServiceFactory",
+    "NetworkHistoryClient",
 ]

@@ -6,10 +6,12 @@ imports rebased to this package.
 One :class:`HistoryClient` per (tenant, document) — obtained from
 ``DocumentService.history()`` — exposes the commit/ref graph (``log`` /
 ``refs``), near-free fork (``fork``), point-in-time replay
-(``open_at``), and CRDT-mediated integrate (``integrate``).
-:class:`LocalHistoryClient` calls the in-proc plane directly. The JAX
-package's ``NetworkHistoryClient`` (the ``history_*`` doors over the RPC
-transport) comes with the network tier (ROADMAP A8).
+(``open_at``), and CRDT-mediated integrate (``integrate``) in both
+deployments: :class:`LocalHistoryClient` calls the in-proc plane
+directly, :class:`NetworkHistoryClient` rides the ``history_*`` doors
+over the RPC transport (commits arrive as binary FT_HISTORY frames —
+the same refgraph codec the durable ref files use, so the wire
+exercises the torn-tail framing end to end).
 
 ``replay_service`` is the replay driver half of point-in-time reads
 (ref: packages/drivers/replay-driver ReplayController): it resolves the
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+from ..protocol.serialization import message_from_dict
 from .definitions import (
     DocumentDeltaStorage,
     DocumentService,
@@ -192,3 +195,58 @@ class LocalHistoryClient(HistoryClient):
 
     def _storage(self) -> DocumentStorage:
         return self._server.storage(self.tenant_id, self.document_id)
+
+
+class NetworkHistoryClient(HistoryClient):
+    """Over the wire: the front end's ``history_*`` doors on the shared
+    request transport. ``log`` collects the rid-tagged FT_HISTORY binary
+    pushes the terminal JSON reply confirms (same wire, same reader
+    thread: by reply time every commit frame has landed)."""
+
+    def __init__(self, service):
+        self._svc = service
+        self.tenant_id = service._tenant
+        self.document_id = service._doc
+
+    def _frame(self, t: str, **kw) -> dict:
+        svc = self._svc
+        token = (svc._token_provider(self.tenant_id, self.document_id)
+                 if svc._token_provider else None)
+        return {"t": t, "tenant": self.tenant_id, "doc": self.document_id,
+                "token": token, **kw}
+
+    def _req(self, t: str, **kw) -> dict:
+        return self._svc._rpc_transport().request(self._frame(t, **kw))
+
+    def log(self, count: Optional[int] = None) -> list[dict]:
+        transport = self._svc._rpc_transport()
+        rid, reply = transport.request_rid(self._frame(
+            "history_log", count=count))
+        commits = transport.take_history(rid)
+        if len(commits) != reply.get("commits", 0):
+            raise RuntimeError(
+                f"history log frame loss: {len(commits)} of "
+                f"{reply.get('commits')} commits arrived")
+        return commits
+
+    def refs(self) -> dict:
+        return self._req("history_log", count=0)["refs"]
+
+    def at(self, seq: int) -> dict:
+        return self._req("history_at", seq=seq)["at"]
+
+    def deltas(self, from_seq: int, to_seq: int) -> list:
+        reply = self._req("history_deltas",
+                          **{"from": from_seq, "to": to_seq})
+        return [message_from_dict(d) for d in reply["msgs"]]
+
+    def fork(self, at_seq: Optional[int] = None,
+             new_doc: Optional[str] = None) -> dict:
+        return self._req("history_fork", seq=at_seq,
+                         new_doc=new_doc)["fork"]
+
+    def integrate(self, batch: int = 64) -> dict:
+        return self._req("history_integrate", batch=batch)["integrate"]
+
+    def _storage(self) -> DocumentStorage:
+        return self._svc.connect_to_storage()

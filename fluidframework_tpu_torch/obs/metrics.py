@@ -342,6 +342,33 @@ class MetricsRegistry:
                        if all(kv in key for kv in want)]
         return sum(ws.sum(now, window_s) for ws in matched)
 
+    def window_history(self, name: Optional[str] = None,
+                       now: Optional[float] = None, **labels) -> dict:
+        """Retained history of every windowed series (or just
+        ``name``), label-filtered by subset match — the read behind
+        ``admin_metrics_history``:
+
+            {name: [{"labels": {...}, "points": [...]}]}
+
+        Points are :meth:`WindowedSeries.history` dicts; ``t`` is
+        process-monotonic seconds (the RPC layer ships ``now_mono`` +
+        ``now_wall`` alongside so clients can rebase to wall time)."""
+        want = [(k, str(v)) for k, v in labels.items()]
+        with self._lock:
+            names = [name] if name is not None else list(self._windows)
+            matched = [
+                (n, key, ws)
+                for n in names
+                for key, ws in self._windows.get(n, {}).items()
+                if all(kv in key for kv in want)]
+        out: dict[str, list] = {}
+        for n, key, ws in matched:
+            points = ws.history(now)
+            if points:
+                out.setdefault(n, []).append(
+                    {"labels": dict(key), "points": points})
+        return out
+
     def register_tier(self, tier: str, counters: Counters) -> None:
         """Track a tier's Counters weakly: the hot path keeps writing
         its private instance, the scrape reads whatever is still

@@ -1,11 +1,11 @@
 """Binary wire codec for the HOT frames of the socket protocol.
 
 JAX counterpart: ``fluidframework_tpu/protocol/binwire.py``; the port's
-copy, imports rebased to this package, without the FT_HISTORY commit
-frames (they come with the network history doors, ROADMAP A8). The durable log
-uses its columnar section (``encode_cols``, ``_read_cols``,
-``encode_seg_block``, ``read_seg_block``, ``SEG_COLS``, ``SEG_JSON``);
-the network tier will use the rest.
+copy, imports rebased to this package. The durable log uses its columnar
+section (``encode_cols``, ``_read_cols``, ``encode_seg_block``,
+``read_seg_block``, ``SEG_COLS``, ``SEG_JSON``); the network tier (front
+end, gateway, network driver, socket load) uses the rest, the FT_HISTORY
+commit frames of the history doors included.
 
 Ref: the reference ships every socket payload as JSON over socket.io
 (driver-base/src/documentDeltaConnection.ts:53, alfred index.ts:310);
@@ -1050,6 +1050,31 @@ def read_snap_chunk(body: bytes):
     rid = int.from_bytes(body[2:6], "big")
     (hl,) = _U16.unpack_from(body, 6)
     return rid, body[8:8 + hl].decode("ascii"), body[8 + hl:]
+
+
+def encode_history_commit(rid: int, commit: dict) -> bytes:
+    """History commit dict → one FT_HISTORY push body, tagged with the
+    u32 request id (routing, like FT_COLS_SNAP). The commit rides as a
+    framed refgraph record so the wire exercises the same crc'd codec
+    the per-doc ref file persists."""
+    from .refgraph import encode_commit, frame_record
+    return (bytes((MAGIC, FT_HISTORY)) + rid.to_bytes(4, "big")
+            + frame_record(encode_commit(commit)))
+
+
+def decode_history_commit(body: bytes):
+    """FT_HISTORY body → (rid, commit dict). Raises on a torn record —
+    the wire is a reliable stream, unlike the ref file's tail."""
+    from .refgraph import scan_records
+    rid = int.from_bytes(body[2:6], "big")
+    records, clean = scan_records(body[6:])
+    if len(records) != 1 or clean != len(body) - 6:
+        raise ValueError("malformed FT_HISTORY body")
+    rec = records[0]
+    if rec.get("t") != "commit":
+        raise ValueError("FT_HISTORY body is not a commit record")
+    rec.pop("t", None)
+    return rid, rec
 
 
 # --------------------------------------------------- gateway byte rewrites

@@ -5,9 +5,8 @@ JAX counterpart: ``fluidframework_tpu/replay/tool.py``; the port's copy,
 imports rebased to this package. ``replay_through_applier`` feeds the
 port's ``GpuDocumentApplier``, on ``cuda`` unless given ``device="cpu"``.
 ``ReplayController`` boots history-first from the local driver's history
-surface; ``main`` replays file-driver document directories only (the JAX
-tool's ``--port`` replays a live doc through the network driver, ROADMAP
-A8).
+surface; ``main`` replays a file-driver document directory, or with
+``--port`` a live doc through the network driver.
 
 Ref: replay-tool/src/replayMessages.ts (drives loader+runtime over the
 replay driver, snapshotting at intervals) and
@@ -172,12 +171,30 @@ def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(
-        description="replay a recorded doc through the real client stack")
-    p.add_argument("target", help="a file-driver doc dir")
+        description="replay a doc through the real client stack "
+                    "(history-first where a committed version exists)")
+    p.add_argument("target", nargs="+",
+                   help="a file-driver doc dir, or TENANT DOC with --port")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int,
+                   help="replay a LIVE doc through its history plane")
     p.add_argument("--every", type=int, default=50,
                    help="fingerprint interval in sequenced ops")
     args = p.parse_args(argv)
-    controller = ReplayController(FileDocumentService.from_dir(args.target))
+    if args.port is not None:
+        if len(args.target) != 2:
+            p.error("--port takes TENANT DOC")
+        from ..driver.network import NetworkDocumentServiceFactory
+
+        svc = NetworkDocumentServiceFactory(
+            args.host, args.port,
+            snapshot_cache=False).create_document_service(*args.target)
+        controller = ReplayController(svc)
+    else:
+        if len(args.target) != 1:
+            p.error("exactly one doc dir without --port")
+        controller = ReplayController(
+            FileDocumentService.from_dir(args.target[0]))
     got = controller.run(args.every)
     mode = ("history-first" if controller.history is not None
             else "legacy whole-log")

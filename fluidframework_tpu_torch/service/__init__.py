@@ -9,4 +9,21 @@ persists the log on disk, and ``stage_runner`` runs the farm (and scribe)
 as processes of their own that tail it, checkpointing as they go.
 ``service_summarizer.ServiceSummarizer`` writes each doc's summary from
 the farm (``summary_trees`` and ``LocalServer.storage`` store it).
+``front_end.NetworkFrontEnd`` serves the pipeline over TCP, directly or
+through relay ``gateway.Gateway`` processes (native by default), and
+``load_async`` drives it with socket clients.
 """
+
+__all__ = ["Gateway", "NetworkFrontEnd"]
+
+
+def __getattr__(name: str):
+    # resolved on first use, so that ``python -m`` of the front end or
+    # the gateway does not find its own module already imported
+    if name == "NetworkFrontEnd":
+        from .front_end import NetworkFrontEnd
+        return NetworkFrontEnd
+    if name == "Gateway":
+        from .gateway import Gateway
+        return Gateway
+    raise AttributeError(name)

@@ -1,9 +1,9 @@
 """Service-path load generator (BASELINE config 4 analog).
 
 JAX counterpart: ``fluidframework_tpu/service/load_gen.py``; the port's
-copy of ``LoadStats``, ``wire_applier`` and ``run_inproc``, imports
-rebased to this package. ``run_network`` (socket clients against a
-network front end) waits for the front end's port (ROADMAP A8).
+copy of ``LoadStats``, ``wire_applier``, ``run_inproc``, ``run_network``
+(socket clients through the network driver against a live front end) and
+its subprocess worker, imports rebased to this package.
 ``run_inproc_on`` is the port's own: ``run_inproc`` on a server the
 caller holds, so that what the run leaves (the doc's storage, its
 orderers) can be summarised and booted from afterwards.
@@ -225,3 +225,133 @@ def run_inproc_on(
         stats.applier_ops = applier.ops_applied
         stats.applier_escalations = applier.host_escalations
     return stats
+
+
+def run_network(
+    port: int,
+    n_docs: int = 2,
+    clients_per_doc: int = 2,
+    ops_per_client: int = 100,
+    seed: int = 0,
+    tenant: str = "bench",
+    host: str = "127.0.0.1",
+    timeout: float = 60.0,
+    rate_hz: Optional[float] = None,
+    doc_prefix: str = "netdoc",
+) -> LoadStats:
+    """Drive socket clients against a live front end; measure op-ack
+    latency (submit → own op broadcast back) and throughput.
+
+    ``rate_hz`` paces each SUBMISSION ROUND (one op per client) — without
+    pacing the unbounded submit loop measures queueing depth, not service
+    latency (the north-star p99 < 50 ms is an at-load number, not a
+    saturation number)."""
+    from ..driver.network import NetworkDocumentServiceFactory
+    from ..protocol.messages import TraceHop
+    from ..utils import TraceAggregator
+
+    import threading
+
+    rng = random.Random(seed)
+    factory = NetworkDocumentServiceFactory(host, port)
+    stats = LoadStats()
+    traces = TraceAggregator()
+    # acks arrive on per-connection reader threads; unsynchronized
+    # read-modify-writes on the shared counters would drop increments
+    stats_lock = threading.Lock()
+    sessions = []
+
+    for d in range(n_docs):
+        doc = f"{doc_prefix}{d}"
+        for _ in range(clients_per_doc):
+            svc = factory.create_document_service(tenant, doc)
+            conn = svc.connect_to_delta_stream()
+            editor = SyntheticEditor(rng)
+            pending: dict[int, float] = {}  # clientSeq → send time
+
+            def on_op(msg, editor=editor, me=conn.client_id, pending=pending):
+                if msg.client_id == me:
+                    editor.ref_seq = msg.sequence_number
+                    sent = pending.pop(msg.client_sequence_number, None)
+                    now = time.time()
+                    with stats_lock:
+                        if sent is not None:
+                            stats.ack_latencies_ms.append(
+                                (time.perf_counter() - sent) * 1e3)
+                        traces.record(msg, ack_time=now)
+                        stats.ops_acked += 1
+                else:
+                    editor.observe(msg)
+            conn.on_op = on_op
+            sessions.append((conn, editor, pending))
+
+    expected = len(sessions) * ops_per_client
+    t0 = time.perf_counter()
+    for i in range(ops_per_client):
+        if rate_hz is not None:
+            # absolute schedule so pacing error doesn't accumulate
+            target = t0 + i / rate_hz
+            delay = target - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+        for conn, editor, pending in sessions:
+            with conn.lock:
+                op = editor.next_op()
+                # client-side trace stamp: deli appends its hop, and the
+                # ack observer turns the pair into per-hop latency
+                op.traces.append(
+                    TraceHop(service="client", action="submit",
+                             timestamp=time.time()))
+                pending[op.client_sequence_number] = time.perf_counter()
+                conn.submit([op])
+            stats.ops_submitted += 1
+    # wait for all acks
+    deadline = time.time() + timeout
+    while stats.ops_acked < expected and time.time() < deadline:
+        time.sleep(0.002)
+    stats.seconds = time.perf_counter() - t0
+    stats.hops = traces.raw
+    for conn, _, _ in sessions:
+        conn.close()
+    return stats
+
+
+def _worker_main() -> None:
+    """Subprocess load runner (ref: service-load-test nodeStressTest.ts —
+    the orchestrator spawns N runner PROCESSES so client-side work never
+    shares a GIL with the measurement). Prints one JSON result line."""
+    import argparse
+    import gc
+    import json
+    import sys
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--docs", type=int, default=4)
+    p.add_argument("--clients-per-doc", type=int, default=2)
+    p.add_argument("--ops", type=int, default=200)
+    p.add_argument("--rate", type=float, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--doc-prefix", default="netdoc")
+    args = p.parse_args()
+
+    gc.set_threshold(200000, 50, 50)
+    gc.collect()
+    gc.freeze()
+    stats = run_network(
+        args.port, n_docs=args.docs, clients_per_doc=args.clients_per_doc,
+        ops_per_client=args.ops, seed=args.seed, host=args.host,
+        rate_hz=args.rate, doc_prefix=args.doc_prefix)
+    json.dump({
+        "ops": stats.ops_submitted,
+        "acked": stats.ops_acked,
+        "seconds": stats.seconds,
+        "lat_ms": stats.ack_latencies_ms,
+        "hops": stats.hops,
+    }, sys.stdout)
+    print()
+
+
+if __name__ == "__main__":
+    _worker_main()

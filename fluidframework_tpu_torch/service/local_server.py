@@ -203,6 +203,9 @@ class LocalServer:
         self.log = log if log is not None else LocalLog()
         self.db = InMemoryDb()
         self.pubsub = PubSub()
+        # tenant registry (riddler role): the port runs in open dev mode
+        # (None), the registry comes with ROADMAP A10
+        self.tenants = None
         # content-addressed blob store, db-backed
         self.blob_store = DbBlobStore(self.db)
         # doc history plane (commit/ref graph over snapshot generations):
@@ -340,6 +343,34 @@ class LocalServer:
             # bootable summary covers the hole
             e.snapshot_seq = orderer.acked_boot_seq()
             raise
+
+    def get_delta_blocks(
+        self, tenant_id: str, document_id: str, from_seq: int, to_seq: int
+    ):
+        """Columnar backfill door: ``(payloads, msgs, head)`` covering
+        from_seq < seq < to_seq, or None when the durable log has no
+        segment stream for this doc (caller falls back to
+        :meth:`get_deltas`). ``payloads`` are raw segment-block byte
+        ranges (a boundary block may span past the range — the CLIENT
+        trims by seq); ``msgs`` are legacy-record ops materialized
+        through the compat shim. Enforces the same retention contract as
+        the scalar door: reaching below the trim base raises
+        :class:`~.scriptorium.LogTruncatedError` rather than silently
+        serving a partial range."""
+        blocks = getattr(self.log, "delta_blocks", None)
+        if blocks is None:
+            return None
+        orderer = self._get_orderer(tenant_id, document_id)
+        base = orderer.scriptorium.retained_base(tenant_id, document_id)
+        if from_seq < base:
+            raise LogTruncatedError(base,
+                                    snapshot_seq=orderer.acked_boot_seq())
+        res = blocks(f"deltas/{tenant_id}/{document_id}", from_seq, to_seq)
+        if res is None:
+            return None
+        payloads, legacy = res
+        head = orderer.scriptorium.head_seq(tenant_id, document_id)
+        return payloads, legacy, head
 
     def drain(self) -> int:
         """Deliver all queued messages through the pipeline to quiescence."""

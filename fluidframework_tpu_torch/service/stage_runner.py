@@ -452,13 +452,21 @@ def main() -> None:
                              "(N stage processes split the doc space)")
     parser.add_argument("--device", default="cuda",
                         help="the applier stage's device (default cuda)")
+    parser.add_argument("--max-docs", type=int, default=64,
+                        help="the applier stage's farm: doc slots [D] of "
+                             "a new farm (a checkpoint keeps its own)")
+    parser.add_argument("--max-slots", type=int, default=256,
+                        help="the applier stage's farm: segment slots "
+                             "per doc [S]")
     args = parser.parse_args()
     signal.signal(signal.SIGTERM, lambda *a: os._exit(0))
     partition = None
     if args.partition:
         k, _, n = args.partition.partition("/")
         partition = (int(k), int(n))
-    kwargs = {"device": args.device} if args.stage == "applier" else {}
+    kwargs = ({"device": args.device, "max_docs": args.max_docs,
+               "max_slots": args.max_slots}
+              if args.stage == "applier" else {})
     STAGES[args.stage](args.log_dir, args.state_dir,
                        partition=partition, **kwargs).run_forever()
 

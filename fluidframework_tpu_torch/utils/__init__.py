@@ -1,6 +1,6 @@
 """Base utils of the port (JAX counterpart: ``fluidframework_tpu/utils``):
-the telemetry logger, counters, trace-hop ids and thread-affinity
-markers."""
+the telemetry logger, counters, trace-hop ids with the hop-pair
+breakdown, and thread-affinity markers."""
 
 from .telemetry import (  # noqa: F401
     HOP_ACK,
@@ -16,5 +16,8 @@ from .telemetry import (  # noqa: F401
     Counters,
     PerformanceEvent,
     TelemetryLogger,
+    TraceAggregator,
+    count_unknown_hops,
+    hop_pairs,
     percentile,
 )

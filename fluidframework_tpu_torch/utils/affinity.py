@@ -1,8 +1,8 @@
 """Execution-context markers for the concurrency contract checker.
 
 JAX counterpart: ``fluidframework_tpu/utils/affinity.py``; the port's copy
-of the markers its modules use: ``loop_only``, ``any_thread``,
-``holds_lock`` and ``blocking``.
+of the markers its modules use: ``loop_only``, ``ticker_thread``,
+``any_thread``, ``holds_lock`` and ``blocking``.
 
 Thread-discipline violations (staging refills racing in-flight
 executions, counters read from a ticker thread) are the bugs these
@@ -14,13 +14,23 @@ per call (the function object is returned unwrapped).
 
 from __future__ import annotations
 
-__all__ = ["loop_only", "any_thread", "holds_lock", "blocking"]
+__all__ = ["loop_only", "ticker_thread", "any_thread", "holds_lock",
+           "blocking"]
 
 
 def loop_only(loop_name: str = "core"):
     """This function must only run on the named event-loop thread."""
     def mark(fn):
         fn.__affinity__ = ("loop", loop_name)
+        return fn
+    return mark
+
+
+def ticker_thread(ticker_name: str):
+    """This function runs on (or is a callback for) the named daemon
+    ticker thread."""
+    def mark(fn):
+        fn.__affinity__ = ("ticker", ticker_name)
         return fn
     return mark
 

@@ -9,9 +9,9 @@ timing (:434); server metric counters (services/src/metricClient.ts:7);
 wire-level trace hops consumed for per-hop latency
 (protocol-definitions/src/protocol.ts:59, deli stamping).
 
-Sinks are plain callables (no transport baked in). The JAX package's
-trace consumer (``TraceAggregator`` and the hop-pair breakdown) waits for
-the port of ``run_network``, the only path that reads the hops back.
+Sinks are plain callables (no transport baked in), and the trace
+consumer (``TraceAggregator``) turns the hops deli already stamps into the
+per-hop latency breakdown the socket load reports.
 """
 
 from __future__ import annotations
@@ -52,6 +52,53 @@ HOPS = (
 HOP_SERVICE_ACTION = tuple((s, a) for s, a, _ in HOPS)
 #: (service, action) → hop id.
 HOP_ID = {(s, a): i for i, (s, a, _) in enumerate(HOPS)}
+#: hop id → short key used in breakdown pair names.
+HOP_SHORT = tuple(short for _, _, short in HOPS)
+#: Hop ids in PIPELINE order — shed precedes submit (the park happens
+#: before the retry-flush restamps submit), stage/execute sit between
+#: sequencing and fan-out (the applier consumes the sequenced stream).
+HOP_PIPELINE = (HOP_SHED, HOP_SUBMIT, HOP_RELAY, HOP_ADMIT, HOP_DELI,
+                HOP_STAGE, HOP_EXECUTE, HOP_FANOUT, HOP_ACK)
+#: hop id → pipeline position (the sort key for breakdown legs).
+HOP_ORDER = {h: i for i, h in enumerate(HOP_PIPELINE)}
+
+
+def hop_pair_name(a: int, b: int) -> str:
+    """The breakdown key for the leg between two hop ids."""
+    return f"{HOP_SHORT[a]}_to_{HOP_SHORT[b]}"
+
+
+def hop_pairs(hops) -> list[tuple[str, float]]:
+    """[(hop_id, ts), ...] → [(pair_name, delta_ms), ...] between
+    consecutive PRESENT hops in pipeline order (unknown ids ignored;
+    a repeated id keeps its last timestamp — EXCEPT gateway/relay,
+    where every stamp is kept in arrival order: stacked relay tiers
+    each stamp the same id, so the repeats ARE the relay depth and
+    each inter-tier leg surfaces as a ``relay_to_relay`` pair)."""
+    ts_by_id: dict[int, float] = {}
+    relays: list[float] = []
+    for i, ts in hops:
+        if not 0 <= i < len(HOPS):
+            continue
+        if i == HOP_RELAY:
+            relays.append(ts)
+        else:
+            ts_by_id[i] = ts
+    seq: list[tuple[int, float]] = []
+    for h in HOP_PIPELINE:
+        if h == HOP_RELAY:
+            seq.extend((HOP_RELAY, ts) for ts in relays)
+        elif h in ts_by_id:
+            seq.append((h, ts_by_id[h]))
+    return [(hop_pair_name(a, b), (tb - ta) * 1e3)
+            for (a, ta), (b, tb) in zip(seq, seq[1:])]
+
+
+def count_unknown_hops(hops) -> int:
+    """Entries whose id falls outside the taxonomy — a version-skewed
+    stamper. Callers surface the count as ``obs.trace.unknown_hops``
+    (this module sits below obs/, so it cannot reach the registry)."""
+    return sum(1 for i, _ in hops if not 0 <= i < len(HOPS))
 
 
 def percentile(sorted_vals: list[float], p: float) -> float:
@@ -172,4 +219,76 @@ class Counters:
                 # clobbering the counter (or vice versa)
                 series["counter"] = self._counts[name]
             out[name] = series
+        return out
+
+
+class TraceAggregator:
+    """Consume wire trace hops into an ordered hop-pair breakdown.
+
+    Each tier stamps its hop from the :data:`HOPS` taxonomy (client/
+    submit, gateway/relay, frontend/admit, deli/sequence, broadcast/
+    fanout); the ack observer calls ``record(msg)`` when its own op
+    comes back. Every leg between consecutive PRESENT hops becomes a
+    ``{a}_to_{b}`` latency series — partial stamping (only client+deli)
+    reproduces the legacy submit→deli / deli→ack split exactly.
+    """
+
+    def __init__(self):
+        self._hops: dict[str, list[float]] = defaultdict(list)
+        #: hops dropped for an id outside the taxonomy — a
+        #: version-skewed stamper; surfaced in ``report()`` (and by
+        #: service consumers as ``obs.trace.unknown_hops``) instead of
+        #: vanishing silently.
+        self.unknown_hops = 0
+
+    def record(self, msg, ack_time: Optional[float] = None) -> None:
+        hops = []
+        for hop in msg.traces:
+            i = HOP_ID.get((hop.service, hop.action))
+            if i is not None:
+                hops.append((i, hop.timestamp))
+            else:
+                self.unknown_hops += 1
+        self.record_hops(
+            hops, ack_time if ack_time is not None else time.time())
+
+    def record_hops(self, hops, ack_time: Optional[float] = None) -> None:
+        """Fold an ordered [(hop_id, timestamp), ...] list (the wire
+        hoptail shape) into the breakdown.
+
+        ``ack_time`` contributes the client/ack hop — but only when the
+        op was actually sequenced (a deli-or-later hop is present): an
+        op that never reached the sequencer has no ack latency to
+        attribute, so a lone client/submit stamp records nothing.
+        """
+        known = [(i, ts) for i, ts in hops if 0 <= i < len(HOPS)]
+        self.unknown_hops += len(hops) - len(known)
+        # "actually sequenced" means deli-or-later in PIPELINE order —
+        # appended ids like frontend/shed are numerically past deli but
+        # sit before it on the path, so numeric comparison would lie
+        deli_pos = HOP_ORDER[HOP_DELI]
+        if (ack_time is not None
+                and all(i != HOP_ACK for i, _ in known)
+                and any(HOP_ORDER[i] >= deli_pos for i, _ in known)):
+            known.append((HOP_ACK, ack_time))
+        for name, ms in hop_pairs(known):
+            self._hops[name].append(ms)
+
+    def merge_raw(self, hops: dict[str, list[float]]) -> None:
+        for name, vals in hops.items():
+            self._hops[name].extend(vals)
+
+    @property
+    def raw(self) -> dict[str, list[float]]:
+        return dict(self._hops)
+
+    def report(self) -> dict:
+        out = {}
+        for name, vals in self._hops.items():
+            s = sorted(vals)
+            out[name] = {"count": len(s),
+                         "p50_ms": round(percentile(s, 0.5), 3),
+                         "p99_ms": round(percentile(s, 0.99), 3)}
+        if self.unknown_hops:
+            out["unknown_hops"] = {"count": self.unknown_hops}
         return out

@@ -70,6 +70,22 @@ PARALLEL = ("parallel/__init__.py", "parallel/mesh.py",
             "parallel/placement.py")
 
 
+#: the network tier: the socket front end and its small dependencies, the
+#: relay (and its native binding), the network driver with its snapshot
+#: cache and history client, the socket load and the fetch tool
+NETWORK = ("service/front_end.py", "service/admission.py",
+           "service/presence.py", "service/rehydrate.py", "obs/probe.py",
+           "service/gateway.py", "native/gateway.py", "driver/network.py",
+           "driver/snapshot_cache.py", "driver/history.py",
+           "service/load_async.py", "service/load_gen.py", "replay/fetch.py",
+           "replay/tool.py", "protocol/binwire.py")
+
+
+def test_sources_cover_the_network_tier():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(NETWORK)
+
+
 def test_sources_cover_the_parallel_layer():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(PARALLEL)
@@ -165,6 +181,31 @@ def test_native_build_reads_only_port_sources(monkeypatch, tmp_path):
     assert sources == [PORT / "csrc" / "oplog.cpp"]
     assert native_build.source("oplog").is_relative_to(PORT)
     assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_native_gateway_builds_only_from_port_sources(monkeypatch, tmp_path):
+    """The gateway relay is compiled from the port's own copy of its
+    source, through the port's loader (never the JAX package's)."""
+    import subprocess
+
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.native import gateway as native_gateway
+
+    commands = []
+
+    def fake_run(cmd, **kwargs):
+        commands.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build.subprocess, "run", fake_run)
+    lib = native_build.build("gateway")
+    assert lib.parent == tmp_path / "build" and lib.exists()
+    (cmd,) = commands
+    sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [PORT / "csrc" / "gateway.cpp"]
+    assert native_gateway.load_library is native_build.load_library
 
 
 def test_native_build_needs_gxx(monkeypatch, tmp_path):
