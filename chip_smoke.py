@@ -52,6 +52,18 @@ applier stage child on the card at D=1024, S=256) under four
 gateways, 98,304 ops at 4 Hz), then holds the stage's farm against a CPU
 applier fed the core's durable log, boots 64 summarized docs over the
 network and replays three fetched live docs on the card and the CPU.
+Then the storage tier: ``storage`` runs the service run on a
+``LocalServer`` over a ``DurableLog`` and the native chunk store, writes
+1024 summaries from the card, and reopens both directories in a fresh
+server (heads, 1024 boots, the history plane's ``.hist`` files, object
+ids equal to a CPU-written store); then the full production composition
+as processes of the port (``service.storage_server``, the core with
+``--storage-server --external-scribe``, the scribe stage, two applier
+stage children on the card at ``--partition k/2``, a native gateway)
+under the socket load at 0.4 Hz and 8 real containers that summarize:
+the scribe process acks, the refs advance in the storage process and
+survive its restart, and both stages reach their tails with farms equal
+to a CPU applier's.
 Each phase prints one JSON line (the last one, each phase's seconds); any
 failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
@@ -64,6 +76,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import shutil
 import signal
 import subprocess
 import sys
@@ -1922,7 +1935,8 @@ NETWORK_FETCHES = 3
 
 def _spawn_ready(args: list, ready: str, err_path: str, what: str):
     """A ``python -m`` child of the port; returns (process, its readiness
-    line) once it prints ``ready``, or fails the phase."""
+    line) once it prints ``ready``, or fails the phase (``what`` names the
+    phase and the child)."""
     err = open(err_path, "a")
     proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
                             stdout=subprocess.PIPE, stderr=err, text=True)
@@ -1935,7 +1949,7 @@ def _spawn_ready(args: list, ready: str, err_path: str, what: str):
     if not line or not line[0].startswith(ready):
         proc.kill()
         proc.wait(timeout=60)
-        fail(f"network: {what} did not print {ready} (got {line}, rc "
+        fail(f"{what} did not print {ready} (got {line}, rc "
              f"{proc.poll()}); stderr in {err_path}")
     return proc, line[0].strip()
 
@@ -1960,6 +1974,105 @@ def _cpu_seconds(pid: int) -> float:
     with open(f"/proc/{pid}/stat") as f:
         fields = f.read().rsplit(")", 1)[1].split()
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _run_load(run: dict, ports: list, prefix: str, servers: dict,
+              procs: list, err_path: str, phase: str, during=None):
+    """``run["workers"]`` ``load_async`` workers (worker ``w`` on
+    ``ports[w]``, docs ``<prefix><w>d<k>``) behind the start barrier: each
+    connects all its clients and prints ``CONNECTED``; only then is one
+    start instant handed to all of them. ``during()``, when given, runs on
+    this thread once the instant is handed out. Fails the phase on a
+    worker that does not connect, fails or leaves an op unacked. Returns
+    (the row's load fields, the last ack's wall time); the first two
+    workers' latencies are the gateway's, the others direct. Appends the
+    workers to ``procs``; ``servers`` names the pids whose CPU seconds over
+    the load window the row reports."""
+    t0 = time.perf_counter()
+    workers = []
+    for w in range(run["workers"]):
+        wp = subprocess.Popen(
+            [sys.executable, "-m",
+             "fluidframework_tpu_torch.service.load_async",
+             "--port", str(ports[w]),
+             "--docs", str(run["docs_per_worker"]),
+             "--clients-per-doc", str(run["clients_per_doc"]),
+             "--rounds", str(run["rounds"]),
+             "--batch", str(run["batch"]),
+             "--rate", str(run["rate"]), "--seed", str(w),
+             "--start-gate", "--timeout", "180",
+             "--doc-prefix", f"{prefix}{w}d"],
+            cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=open(err_path, "a"), text=True)
+        procs.append(wp)
+        workers.append(wp)
+    said = [[] for _ in workers]
+    readers = [threading.Thread(
+        target=lambda wp=wp, got=got: got.append(
+            wp.stdout.readline()), daemon=True)
+        for wp, got in zip(workers, said)]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join(max(1.0, CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+    for w, got in enumerate(said):
+        if not got or got[0].strip() != "CONNECTED":
+            fail(f"{phase}: load worker {w} did not connect (got {got}, rc "
+                 f"{workers[w].poll()}); stderr in {err_path}")
+    row = {"connect_seconds": time.perf_counter() - t0}
+    # the servers' CPU over the load alone (connects excluded): a busy
+    # share near 1 is a saturated loop
+    cpu0 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+    start_at = time.time() + NETWORK_START_MARGIN_S
+    for wp in workers:
+        wp.stdin.write(f"{start_at!r}\n")
+        wp.stdin.close()
+    if during is not None:
+        during()
+    results = []
+    for w, wp in enumerate(workers):
+        out = wp.stdout.read()
+        wp.wait(timeout=300)
+        if wp.returncode != 0 or not out.strip():
+            fail(f"{phase}: load worker {w} failed (rc {wp.returncode}); "
+                 f"stderr in {err_path}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    cpu1 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+    for w, r in enumerate(results):
+        if r["acked"] != r["ops"] or r["errors"]:
+            fail(f"{phase}: worker {w} acked {r['acked']} of {r['ops']} "
+                 f"ops ({r['errors'][:2]})")
+    ops = sum(r["ops"] for r in results)
+    if ops != run["workers"] * run["docs_per_worker"] \
+            * run["clients_per_doc"] * run["rounds"] * run["batch"]:
+        fail(f"{phase}: {ops} ops submitted")
+    # all the work over the whole window: the earliest first submit to the
+    # last ack of any worker
+    last_ack = max(r["ended_at"] for r in results)
+    seconds = last_ack - min(r["started_at"] for r in results)
+    late_s = max(r["late_s"] for r in results)
+    lat = [x for r in results for x in r["lat_ms"]]
+    gw_lat = [x for r in results[:2] for x in r["lat_ms"]]
+    direct_lat = [x for r in results[2:] for x in r["lat_ms"]]
+    row.update(
+        ops=ops, seconds=seconds, ops_per_sec=ops / seconds,
+        late_s=late_s, tainted=late_s > 0,
+        p50_ack_ms=_pct(lat, 0.50), p99_ack_ms=_pct(lat, 0.99),
+        direct_p50_ack_ms=_pct(direct_lat, 0.50),
+        direct_p99_ack_ms=_pct(direct_lat, 0.99),
+        gateway_p50_ack_ms=_pct(gw_lat, 0.50),
+        gateway_p99_ack_ms=_pct(gw_lat, 0.99))
+    # the sampled boxcars' hop legs (every 16th boxcar a client)
+    hops: dict = {}
+    for r in results:
+        for name, vals in r["hops"].items():
+            hops.setdefault(name, []).extend(vals)
+    row["hops"] = {name: {"count": len(v), "p50_ms": _pct(v, 0.5),
+                          "p99_ms": _pct(v, 0.99)}
+                   for name, v in sorted(hops.items())}
+    row["load_window_seconds"] = seconds
+    row["cpu_seconds"] = {k: cpu1[k] - cpu0[k] for k in servers}
+    return row, last_ack
 
 
 def phase_network(power: str, device: str = "cuda"):
@@ -2011,13 +2124,13 @@ def phase_network(power: str, device: str = "cuda"):
                  "--device", device,
                  "--max-docs", str(SERVICE_GEO["max_docs"]),
                  "--max-slots", str(SERVICE_GEO["max_slots"])],
-                "READY", err_path, "the applier stage")
+                "READY", err_path, "network: the applier stage")
             procs.append(stage)
             row["stage_start_seconds"] = time.perf_counter() - t0
             core, line = _spawn_ready(
                 ["fluidframework_tpu_torch.service.front_end", "--port", "0",
                  "--log-dir", log_dir, "--consume-backchannel", state_dir],
-                "LISTENING", err_path, "the core")
+                "LISTENING", err_path, "network: the core")
             procs.append(core)
             core_port = int(line.rsplit(":", 1)[1])
             t0 = time.perf_counter()
@@ -2027,7 +2140,7 @@ def phase_network(power: str, device: str = "cuda"):
                 gw, line = _spawn_ready(
                     ["fluidframework_tpu_torch.service.gateway",
                      "--core-port", str(core_port)],
-                    "LISTENING", err_path, "a gateway")
+                    "LISTENING", err_path, "network: a gateway")
                 procs.append(gw)
                 gw_ports.append(int(line.rsplit(":", 1)[1]))
                 with open(f"/proc/{gw.pid}/maps") as f:
@@ -2043,90 +2156,9 @@ def phase_network(power: str, device: str = "cuda"):
             ports = [gw_ports[0], gw_ports[1], core_port, core_port]
             servers = {"core": core.pid, "gateway0": procs[2].pid,
                        "gateway1": procs[3].pid, "stage": stage.pid}
-            t0 = time.perf_counter()
-            workers = []
-            for w in range(run["workers"]):
-                wp = subprocess.Popen(
-                    [sys.executable, "-m",
-                     "fluidframework_tpu_torch.service.load_async",
-                     "--port", str(ports[w]),
-                     "--docs", str(run["docs_per_worker"]),
-                     "--clients-per-doc", str(run["clients_per_doc"]),
-                     "--rounds", str(run["rounds"]),
-                     "--batch", str(run["batch"]),
-                     "--rate", str(run["rate"]), "--seed", str(w),
-                     "--start-gate", "--timeout", "180",
-                     "--doc-prefix", f"netw{w}d"],
-                    cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                    stderr=open(err_path, "a"), text=True)
-                procs.append(wp)
-                workers.append(wp)
-            said = [[] for _ in workers]
-            readers = [threading.Thread(
-                target=lambda wp=wp, got=got: got.append(
-                    wp.stdout.readline()), daemon=True)
-                for wp, got in zip(workers, said)]
-            for r in readers:
-                r.start()
-            for r in readers:
-                r.join(max(1.0, CHILD_TIMEOUT_S - (time.perf_counter()
-                                                   - t0)))
-            for w, got in enumerate(said):
-                if not got or got[0].strip() != "CONNECTED":
-                    fail(f"network: load worker {w} did not connect (got "
-                         f"{got}, rc {workers[w].poll()}); stderr in "
-                         f"{err_path}")
-            row["connect_seconds"] = time.perf_counter() - t0
-            # the servers' CPU over the load alone (connects excluded):
-            # a busy share near 1 is a saturated loop
-            cpu0 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
-            start_at = time.time() + NETWORK_START_MARGIN_S
-            for wp in workers:
-                wp.stdin.write(f"{start_at!r}\n")
-                wp.stdin.close()
-            results = []
-            for w, wp in enumerate(workers):
-                out = wp.stdout.read()
-                wp.wait(timeout=300)
-                if wp.returncode != 0 or not out.strip():
-                    fail(f"network: load worker {w} failed (rc "
-                         f"{wp.returncode}); stderr in {err_path}")
-                results.append(json.loads(out.strip().splitlines()[-1]))
-            cpu1 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
-            for w, r in enumerate(results):
-                if r["acked"] != r["ops"] or r["errors"]:
-                    fail(f"network: worker {w} acked {r['acked']} of "
-                         f"{r['ops']} ops ({r['errors'][:2]})")
-            ops = sum(r["ops"] for r in results)
-            if ops != len(docs) * run["clients_per_doc"] * run["rounds"] \
-                    * run["batch"]:
-                fail(f"network: {ops} ops submitted")
-            # all the work over the whole window: the earliest first
-            # submit to the last ack of any worker
-            last_ack = max(r["ended_at"] for r in results)
-            seconds = last_ack - min(r["started_at"] for r in results)
-            late_s = max(r["late_s"] for r in results)
-            lat = [x for r in results for x in r["lat_ms"]]
-            gw_lat = [x for r in results[:2] for x in r["lat_ms"]]
-            direct_lat = [x for r in results[2:] for x in r["lat_ms"]]
-            row.update(
-                ops=ops, seconds=seconds, ops_per_sec=ops / seconds,
-                late_s=late_s, tainted=late_s > 0,
-                p50_ack_ms=_pct(lat, 0.50), p99_ack_ms=_pct(lat, 0.99),
-                direct_p50_ack_ms=_pct(direct_lat, 0.50),
-                direct_p99_ack_ms=_pct(direct_lat, 0.99),
-                gateway_p50_ack_ms=_pct(gw_lat, 0.50),
-                gateway_p99_ack_ms=_pct(gw_lat, 0.99))
-            # the sampled boxcars' hop legs (every 16th boxcar a client)
-            hops: dict = {}
-            for r in results:
-                for name, vals in r["hops"].items():
-                    hops.setdefault(name, []).extend(vals)
-            row["hops"] = {name: {"count": len(v), "p50_ms": _pct(v, 0.5),
-                                  "p99_ms": _pct(v, 0.99)}
-                           for name, v in sorted(hops.items())}
-            row["load_window_seconds"] = seconds
-            row["cpu_seconds"] = {k: cpu1[k] - cpu0[k] for k in servers}
+            load, last_ack = _run_load(run, ports, "netw", servers, procs,
+                                       err_path, "network")
+            row.update(load)
 
             # quiescence: every doc's applierSeq reaches its seq
             rpc = _Transport("127.0.0.1", core_port, timeout=60.0)
@@ -2253,6 +2285,474 @@ def phase_network(power: str, device: str = "cuda"):
     return launches
 
 
+#: the storage phase, part B: the network phase's width at a pace the core
+#: serves (0.4 Hz a client: 98,304 ops over about 10 s), two workers
+#: through the gateway and two direct, beside real containers on
+#: STORAGE_CONTAINERS docs through the gateway
+STORAGE_RUN = dict(workers=4, docs_per_worker=256, clients_per_doc=2,
+                   rounds=4, batch=12, rate=0.4)
+STORAGE_CONTAINERS = 8
+
+
+def _object_files(directory: str) -> dict:
+    """{object id: bytes} of a chunk store (the fan-out layout
+    ``aa/rest``), the history plane's files left out."""
+    out = {}
+    for fan in os.listdir(directory):
+        if len(fan) != 2:
+            continue
+        for rest in os.listdir(os.path.join(directory, fan)):
+            out[fan + rest] = os.path.getsize(
+                os.path.join(directory, fan, rest))
+    return out
+
+
+def _storage_durable(root: str, row: dict, device: str) -> int:
+    """Part A: the service run on a ``LocalServer`` over a ``DurableLog``
+    and the native chunk store, 1024 summaries from the card, then a
+    fresh server over the same directories. Returns B1's launches."""
+    from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.protocol.refgraph import RefLog
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+        channel_stream,
+    )
+    from fluidframework_tpu_torch.service.load_gen import run_inproc_on
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+    from fluidframework_tpu_torch.service.service_summarizer import (
+        ServiceSummarizer,
+    )
+
+    docs = [f"doc{d}" for d in range(SERVICE_RUN["n_docs"])]
+    log_dir, blob_dir = (os.path.join(root, "log"),
+                         os.path.join(root, "blobs"))
+    cpu_log, cpu_blobs = (os.path.join(root, "cpu_log"),
+                          os.path.join(root, "cpu_blobs"))
+    os.makedirs(log_dir)
+    server = LocalServer(log=DurableLog(log_dir), storage_dir=blob_dir)
+    card = GpuDocumentApplier(device=device, async_dispatch=True,
+                              min_wave_ops=32768, **SERVICE_GEO)
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stats = run_inproc_on(server, applier=card, array_lane=True,
+                              **SERVICE_RUN)
+        row["feed_seconds"] = time.perf_counter() - t0
+        if stats.ops_acked != stats.ops_submitted or \
+                stats.applier_ops != stats.ops_submitted:
+            fail(f"storage: {stats.ops_acked} acked, {stats.applier_ops} "
+                 f"applied of {stats.ops_submitted}")
+        row["ops"] = stats.ops_submitted
+        server.checkpoint_all()
+        server.log.flush()
+        # the CPU store's server replays a copy of this log: the same
+        # stream, client ids and seqs
+        t0 = time.perf_counter()
+        shutil.copytree(log_dir, cpu_log)
+        row["log_copy_seconds"] = time.perf_counter() - t0
+        svc = ServiceSummarizer(server, card)
+        row["summary_pass"] = _summary_pass(svc, server, card, docs)
+        card.finalize()  # re-raises a worker exception: the phase fails
+        launches = cuda_apply.LAUNCHES
+        if launches != card.dispatches or launches == 0:
+            fail(f"storage: {launches} kernel launches for "
+                 f"{card.dispatches} dispatches")
+        row.update(launches=launches, dispatches=card.dispatches)
+        heads = {d: server._get_orderer("bench", d).scribe.last_summary_head
+                 for d in docs}
+        t0 = time.perf_counter()
+        server.checkpoint_all()
+        server.log.sync()
+        server.log.close()
+        server.blob_store.close()
+        row["close_seconds"] = time.perf_counter() - t0
+    finally:
+        card.close()
+    objects = _object_files(blob_dir)
+    row.update(objects_written=len(objects),
+               bytes_written=sum(objects.values()))
+
+    # the same summarizer from a CPU applier, into a second store
+    cpu_server = LocalServer(log=DurableLog(cpu_log), storage_dir=cpu_blobs)
+    for doc in docs:  # each doc's pipeline replays at the next drain
+        cpu_server._get_orderer("bench", doc)
+    cpu_server.log.drain()
+    cpu = GpuDocumentApplier(device="cpu", **SERVICE_GEO)
+    cpu.set_replay_source(lambda t, d: [])
+    for doc in docs:
+        cpu.ingest_batch("bench", doc, [
+            (m, m.contents) for m in channel_stream(
+                cpu_server, "bench", doc, "default", "text")])
+    cpu.finalize()
+    cpu_svc = ServiceSummarizer(cpu_server, cpu)
+    if cpu_svc.summarize_all("bench", docs) != len(docs):
+        fail(f"storage: the CPU pass refused {cpu_svc.refusals[:1]}")
+    cpu_server.log.close()
+    cpu_server.blob_store.close()
+    cpu_objects = _object_files(cpu_blobs)
+    if cpu_objects != objects:
+        only = sorted(set(objects) ^ set(cpu_objects))
+        fail(f"storage: the card's store and the CPU's differ in "
+             f"{len(only)} objects (first {only[:1]})")
+
+    # a fresh server over the same two directories
+    t0 = time.perf_counter()
+    server2 = LocalServer(log=DurableLog(log_dir), storage_dir=blob_dir)
+    orderers = [server2._get_orderer("bench", d) for d in docs]
+    server2.log.drain()
+    reopened = {d: o.scribe.last_summary_head for d, o in zip(docs, orderers)}
+    row["reopen_seconds"] = time.perf_counter() - t0
+    bad = [d for d in docs if reopened[d] != heads[d] or heads[d] is None]
+    if bad:
+        fail(f"storage: {len(bad)} docs' summary heads did not survive the "
+             f"reopen (first {bad[0]}: {heads[bad[0]]} -> "
+             f"{reopened[bad[0]]})")
+    loader = Loader(LocalDocumentServiceFactory(server2))
+    t0 = time.perf_counter()
+    booted = [loader.resolve("bench", d, connect=False) for d in docs]
+    row["boot_seconds"] = time.perf_counter() - t0
+    bad = [d for d, c in zip(docs, booted) if c._base_snapshot is None
+           or c.runtime.get_data_store("default").get_channel("text")
+           .get_text() != cpu.get_text("bench", d)]
+    if bad:
+        fail(f"storage: {len(bad)} booted containers differ from the CPU "
+             f"applier or did not boot from the summary (first {bad[0]})")
+    bad = [d for d in docs if not any(
+        r["t"] == "commit" and r["version"] == heads[d]
+        for r in RefLog(os.path.join(blob_dir, "history",
+                                     f"bench__{d}.hist")).load())]
+    if bad:
+        fail(f"storage: {len(bad)} docs' .hist files lack their commit "
+             f"(first {bad[0]})")
+    server2.log.close()
+    server2.blob_store.close()
+    row.update(docs=len(docs), heads_survive=True, boots_match_cpu=True,
+               hist_commits=True, objects_match_cpu=True)
+    return launches
+
+
+def _stage_applied(state_dir: str) -> dict:
+    """doc → newest ``applied_seq`` a stage reported on its backchannel;
+    with the docs it reported ``version`` records for under ``"version"``
+    (tenant ``bench``)."""
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.service.stage_runner import (
+        BACKCHANNEL_TOPIC,
+    )
+
+    log = DurableLog(state_dir, readonly=True)
+    applied, versions = {}, set()
+    try:
+        for i in range(log.refresh_topic(BACKCHANNEL_TOPIC)):
+            rec = log.read(BACKCHANNEL_TOPIC, i)
+            if rec["kind"] == "applied":
+                applied[rec["doc"]] = max(applied.get(rec["doc"], 0),
+                                          rec["applied_seq"])
+            elif rec["kind"] == "version":
+                versions.add(rec["doc"])
+    finally:
+        log.close()
+    return {"applied": applied, "version": versions}
+
+
+def _storage_composition(root: str, row: dict, device: str) -> None:
+    """Part B: the full production composition, every tier a process of
+    the port (storage server, core with an external scribe, the scribe
+    stage, two partitioned applier stages on ``device``, a native
+    gateway), under the socket load and real containers."""
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+        _Transport,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.runtime.summarizer import SummaryManager
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+    from fluidframework_tpu_torch.service.stage_runner import (
+        ApplierStage,
+        doc_partition,
+    )
+    from fluidframework_tpu_torch.service.storage_client import (
+        RemoteStorage,
+        StorageConnection,
+    )
+
+    run = STORAGE_RUN
+    load_docs = [f"stor{w}d{d}" for w in range(run["workers"])
+                 for d in range(run["docs_per_worker"])]
+    cont_docs = [f"cont{i}" for i in range(STORAGE_CONTAINERS)]
+    docs = load_docs + cont_docs
+    tmp = os.path.join(root, "compose")
+    log_dir, store_dir = (os.path.join(tmp, "log"),
+                          os.path.join(tmp, "store"))
+    sstate = os.path.join(tmp, "scribe")
+    astates = [os.path.join(tmp, f"applier{k}") for k in range(2)]
+    err_path = os.path.join(HERE, "build", "smoke", "storage_stderr.txt")
+    procs, named = [], {}
+    out = row["composition"] = {"docs": len(docs), **run,
+                                "containers": len(cont_docs)}
+
+    def spawn(name, args, ready):
+        proc, line = _spawn_ready(args, ready, err_path,
+                                  f"storage: {name}")
+        procs.append(proc)
+        named[name] = proc
+        return proc, line
+
+    def start_storage():
+        port = out.get("storage_port", 0)
+        proc, line = spawn("storage", [
+            "fluidframework_tpu_torch.service.storage_server", "--dir",
+            store_dir, "--port", str(port)], "LISTENING")
+        out["storage_port"] = int(line.rsplit(":", 1)[1])
+        return proc
+
+    owned = {k: [d for d in docs if doc_partition("bench", d, 2) == k]
+             for k in range(2)}
+    if not owned[0] or not owned[1] or \
+            len(owned[0]) + len(owned[1]) != len(docs):
+        fail(f"storage: the partition splits {len(docs)} docs as "
+             f"{len(owned[0])} + {len(owned[1])}")
+    out["docs_per_stage"] = [len(owned[0]), len(owned[1])]
+    conns = []
+    try:
+        t0 = time.perf_counter()
+        storage = start_storage()
+        spawn("scribe", ["fluidframework_tpu_torch.service.stage_runner",
+                         "--stage", "scribe", "--log-dir", log_dir,
+                         "--state-dir", sstate], "READY")
+        for k in range(2):
+            spawn(f"applier{k}", [
+                "fluidframework_tpu_torch.service.stage_runner", "--stage",
+                "applier", "--log-dir", log_dir, "--state-dir", astates[k],
+                "--device", device, "--partition", f"{k}/2",
+                "--max-docs", str(SERVICE_GEO["max_docs"]),
+                "--max-slots", str(SERVICE_GEO["max_slots"])], "READY")
+        _, line = spawn("core", [
+            "fluidframework_tpu_torch.service.front_end", "--port", "0",
+            "--log-dir", log_dir,
+            "--storage-server", f"127.0.0.1:{out['storage_port']}",
+            "--external-scribe", "--consume-backchannel", sstate,
+            "--consume-backchannel", astates[0],
+            "--consume-backchannel", astates[1]], "LISTENING")
+        core_port = int(line.rsplit(":", 1)[1])
+        lib = str(native_build.build("gateway"))
+        gw, line = spawn("gateway", [
+            "fluidframework_tpu_torch.service.gateway", "--core-port",
+            str(core_port)], "LISTENING")
+        gw_port = int(line.rsplit(":", 1)[1])
+        with open(f"/proc/{gw.pid}/maps") as f:
+            if lib not in f.read():
+                fail(f"storage: the gateway does not run the native relay "
+                     f"({lib} not mapped)")
+        out["start_seconds"] = time.perf_counter() - t0
+
+        # real containers through the gateway, each summarizing after 4
+        # operations (2 channel attaches, 2 inserts) while the load runs
+        loader = Loader(NetworkDocumentServiceFactory("127.0.0.1",
+                                                      gw_port))
+        conts = [loader.resolve("bench", d) for d in cont_docs]
+        managers = [SummaryManager(c, max_ops=4) for c in conts]
+        strings, t_sent, t_acked, t_ref, heads = [], {}, {}, {}, {}
+        conn = StorageConnection("127.0.0.1", out["storage_port"])
+        conns.append(conn)
+
+        def write_containers():
+            time.sleep(max(0.0, NETWORK_START_MARGIN_S))
+            for i, c in enumerate(conts):
+                s = c.runtime.create_data_store("default").create_channel(
+                    "text", "shared-string")
+                for w in (f"doc {i} ", "on the card "):
+                    s.insert_text(0, w)
+                t_sent[i] = time.perf_counter()
+                strings.append(s)
+            # each summary's ack (the scribe process validated it, the
+            # core ordered the ack) and its ref in the storage process
+            deadline = time.perf_counter() + CHILD_TIMEOUT_S
+            while len(t_ref) < len(conts) or len(t_acked) < len(conts):
+                for i, (sm, d) in enumerate(zip(managers, cont_docs)):
+                    if i not in t_acked and sm.summaries_acked >= 1:
+                        t_acked[i] = time.perf_counter()
+                    if i not in t_ref:
+                        head = RemoteStorage(conn, "bench", d).get_ref()
+                        if head is not None:
+                            heads[d], t_ref[i] = head, time.perf_counter()
+                if time.perf_counter() > deadline:
+                    fail(f"storage: of {len(conts)} container summaries "
+                         f"{len(t_acked)} were acked and {len(t_ref)} "
+                         "advanced their ref in the storage process")
+                time.sleep(0.01)
+
+        servers = {k: named[k].pid for k in ("core", "gateway", "storage",
+                                             "scribe", "applier0",
+                                             "applier1")}
+        load, last_ack = _run_load(run, [gw_port, gw_port, core_port,
+                                         core_port], "stor", servers,
+                                   procs, err_path, "storage",
+                                   during=write_containers)
+        out.update(load)
+        ack_s = [t_acked[i] - t_sent[i] for i in t_acked]
+        ref_s = [t_ref[i] - t_sent[i] for i in t_ref]
+        out["summary_ack_seconds"] = {"p50": _pct(ack_s, 0.5),
+                                      "max": max(ack_s)}
+        out["summary_ref_seconds"] = {"p50": _pct(ref_s, 0.5),
+                                      "max": max(ref_s)}
+        texts = {d: s.get_text() for d, s in zip(cont_docs, strings)}
+
+        # quiescence: every doc's applierSeq (from its stage) at its seq
+        rpc = _Transport("127.0.0.1", core_port, timeout=60.0)
+        conns.append(rpc)
+        lag = {}
+        while len(lag) < 2:
+            status = _network_statuses(rpc, docs)
+            for k in range(2):
+                if k not in lag and all(status[d][0] == status[d][1]
+                                        for d in owned[k]):
+                    lag[k] = time.time() - last_ack
+            if time.time() - last_ack > CHILD_TIMEOUT_S:
+                first = next(d for d in docs
+                             if status[d][0] != status[d][1])
+                fail(f"storage: docs' applierSeq lag the core (first "
+                     f"{first}: {status[first]})")
+            time.sleep(0.05)
+        out["catch_up_lag_seconds"] = [lag[0], lag[1]]
+        seqs = {d: status[d][0] for d in docs}
+
+        # the scribe PROCESS acked each container's summary; the ref walks
+        scribe_bc = _stage_applied(sstate)
+        if set(cont_docs) - scribe_bc["version"]:
+            fail("storage: the scribe stage recorded no version for "
+                 f"{sorted(set(cont_docs) - scribe_bc['version'])}")
+        for d in cont_docs:
+            hist = RemoteStorage(conn, "bench", d).history()
+            if heads[d] not in [c["id"] for c in hist]:
+                fail(f"storage: the history of {d} lacks its head")
+
+        def boot_all(port, what):
+            bad = []
+            for d in cont_docs:
+                c = Loader(NetworkDocumentServiceFactory(
+                    "127.0.0.1", port)).resolve("bench", d)
+                got = c.runtime.get_data_store("default").get_channel(
+                    "text").get_text()
+                if c._base_snapshot is None or got != texts[d]:
+                    bad.append(d)
+                c.close()
+            if bad:
+                fail(f"storage: {what}: {len(bad)} fresh clients did not "
+                     f"boot from the ref to the writer's text (first "
+                     f"{bad[0]})")
+        t0 = time.perf_counter()
+        boot_all(gw_port, "through the gateway")
+        out["boot_seconds"] = time.perf_counter() - t0
+
+        # each stage reported exactly its partition, at every doc's tail
+        for k in range(2):
+            applied = _stage_applied(astates[k])["applied"]
+            if set(applied) != set(owned[k]):
+                fail(f"storage: applier stage {k} reported "
+                     f"{len(applied)} docs, owns {len(owned[k])}")
+            late = [d for d in owned[k] if applied[d] != seqs[d]]
+            if late:
+                fail(f"storage: applier stage {k} is behind on "
+                     f"{len(late)} docs (first {late[0]})")
+        out["cpu_seconds_total"] = {k: _cpu_seconds(pid)
+                                    for k, pid in servers.items()}
+        # each stage's farm against a CPU applier over the core's log
+        t0 = time.perf_counter()
+        for k in range(2):
+            proc = named[f"applier{k}"]
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=60)
+            farm = load_applier_checkpoint(
+                os.path.join(astates[k], "applier"), device=device)
+            if farm.host_escalations or farm._host_docs:
+                fail(f"storage: applier stage {k} escalated docs")
+            ref = ApplierStage(log_dir, os.path.join(tmp, f"cpu{k}"),
+                               max_docs=SERVICE_GEO["max_docs"],
+                               max_slots=SERVICE_GEO["max_slots"],
+                               partition=(k, 2), device="cpu")
+            while ref.run_once():
+                pass
+            bad = [d for d in owned[k] if ref.applier.get_text("bench", d)
+                   != farm.get_text("bench", d)]
+            ref.shared.close()
+            ref.state.close()
+            if bad:
+                fail(f"storage: {len(bad)} docs of applier stage {k}'s "
+                     f"farm differ from the CPU applier (first {bad[0]})")
+            for d in cont_docs:
+                if d in owned[k] and farm.get_text("bench", d) != texts[d]:
+                    fail(f"storage: stage {k}'s farm reads another text "
+                         f"for {d} than its writer")
+        out["farm_check_seconds"] = time.perf_counter() - t0
+
+        # kill the storage process, restart it on the same --dir and port
+        t0 = time.perf_counter()
+        storage.kill()
+        storage.wait(timeout=30)
+        start_storage()
+        out["storage_restart_seconds"] = time.perf_counter() - t0
+        for d in cont_docs:
+            got = RemoteStorage(conn, "bench", d).get_ref()
+            if got != heads[d]:
+                fail(f"storage: {d}'s ref after the restart is {got}, "
+                     f"not {heads[d]}")
+        boot_all(core_port, "after the storage restart")
+        for c in conts:
+            c.close()
+        out.update(summaries_acked_by_scribe=True, refs_advance=True,
+                   refs_survive_restart=True, stages_at_tail=True,
+                   farms_match_cpu=True, gateway_native=True)
+    finally:
+        for c in conns:
+            c.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+
+def phase_storage(power: str, device: str = "cuda"):
+    """The storage tier. Part A: the service run (1024 docs x 2 clients x
+    48 ops, the async card applier) on a ``LocalServer`` over a
+    ``DurableLog`` and the native chunk store (``storage_dir``);
+    ``summarize_all`` writes every doc's summary from the card into the
+    store and the history plane's ``.hist`` files; after the handles
+    close, a fresh server over the same directories holds every summary
+    head, boots 1024 containers to the CPU applier's texts, finds every
+    commit in its ``.hist`` file, and the store's object ids equal those
+    the same summarizer writes from a CPU applier over a copy of the log.
+    Part B: the full production composition as processes (see
+    ``_storage_composition``). Returns B1's launches in part A (part B's
+    are the stage children's own)."""
+    root = os.path.join(HERE, "build", "smoke", "storage")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    row = {"phase": "storage", "filesystem": subprocess.run(
+        ["stat", "-f", "-c", "%T", os.path.dirname(root)],
+        capture_output=True, text=True, check=True).stdout.strip()}
+    launches = _storage_durable(root, row, device)
+    _storage_composition(root, row, device)
+    shutil.rmtree(root, ignore_errors=True)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    row["card"] = power
+    emit(row)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -2316,6 +2816,7 @@ def main() -> None:
     launches += timed(phase_soak, power)
     launches += timed(phase_replay, power)
     launches += timed(phase_network, power)
+    launches += timed(phase_storage, power)
     launches += timed(phase_mesh, power)
     timed(phase_long_doc, power)
     emit({"phase": "seconds", **seconds})

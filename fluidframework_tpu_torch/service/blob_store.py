@@ -8,7 +8,7 @@ Two implementations of one surface — ``put(bytes) -> id``,
 and ops can assert dedup/handle-reuse behavior:
 
 - :class:`DbBlobStore`: blobs in the in-memory db (test default).
-- :class:`NativeBlobStore`: the C++ chunk store (native/chunkstore.cpp,
+- :class:`NativeBlobStore`: the C++ chunk store (csrc/chunkstore.cpp,
   sha256 fan-out, tmp+rename crash safety) — the production path, used
   whenever the server is given a storage directory.
 """
@@ -16,7 +16,9 @@ and ops can assert dedup/handle-reuse behavior:
 from __future__ import annotations
 
 import hashlib
+import os
 
+from ..native import NativeChunkStore
 from .core import InMemoryDb
 
 
@@ -62,3 +64,43 @@ class DbBlobStore:
         when no ref-reachable commit names the chunk."""
         col = self._db.collection(self._col)
         return col.pop(blob_id, None) is not None
+
+
+class NativeBlobStore:
+    def __init__(self, directory: str):
+        self._cas = NativeChunkStore(directory)
+        self._dir = directory
+        self.stats = BlobStoreStats()
+
+    def put(self, content: bytes) -> str:
+        self.stats.puts += 1
+        blob_id = hashlib.sha256(content).hexdigest()
+        if self._cas.has(blob_id):
+            self.stats.deduped += 1
+        else:
+            self.stats.new_blobs += 1
+        stored = self._cas.put(content)
+        if stored != blob_id:
+            raise OSError(f"host/native hash disagreement: {blob_id} "
+                          f"!= {stored}")
+        return stored
+
+    def get(self, blob_id: str) -> bytes:
+        return self._cas.get(blob_id)
+
+    def has(self, blob_id: str) -> bool:
+        return self._cas.has(blob_id)
+
+    def delete(self, blob_id: str) -> bool:
+        """Unlink one blob from the sha-fan-out object layout
+        (``dir/aa/rest``) — the native store exposes no remove, and GC
+        runs host-side anyway. Returns whether the blob existed."""
+        path = os.path.join(self._dir, blob_id[:2], blob_id[2:])
+        try:
+            os.unlink(path)
+            return True
+        except FileNotFoundError:
+            return False
+
+    def close(self) -> None:
+        self._cas.close()

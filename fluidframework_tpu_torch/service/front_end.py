@@ -4,12 +4,11 @@ JAX counterpart: ``fluidframework_tpu/service/front_end.py``; the port's
 copy of the single-pipeline core, imports rebased to this package: the
 frame protocol and every client door, the gateway backbone, the admin
 status/counter RPCs, the stage backchannel, the service-summarizer loop,
-``start_background``/``serve_forever`` and ``main()``. What the port does
-not carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
-storage tier (``--storage-dir``, ``--storage-server``,
-``--external-scribe`` and the backchannel's ``version`` record, A9) and
-the tenancy, overload, placement and health planes (``--tenant``,
-``--tenant-rate``, ``--slo``, ``--probe``, ``--shard-dir``,
+``start_background``/``serve_forever`` and ``main()`` with the storage
+tier's ``--storage-dir``, ``--storage-server`` and ``--external-scribe``.
+What the port does not carry yet raises ``NotImplementedError`` naming its
+ROADMAP item: the tenancy, overload, placement and health planes
+(``--tenant``, ``--tenant-rate``, ``--slo``, ``--probe``, ``--shard-dir``,
 ``--topology``, ``--rebalance``, the sharded ``ShardHost``, A10). The
 admin doors of the sharded core answer as a single-pipeline core does.
 
@@ -1530,9 +1529,7 @@ class NetworkFrontEnd:
             orderer.order(rec["raw"])
             self.server._maybe_drain()
         elif kind == "version":
-            # an external scribe's version commit: the port's orderer
-            # has no commit_external_version yet
-            raise _not_ported("backchannel version record", "A9")
+            orderer.commit_external_version(rec["handle"], rec["version"])
         elif kind == "retention":
             orderer.apply_retention(rec["capture_seq"])
         elif kind == "applied":
@@ -1743,14 +1740,15 @@ def main() -> None:
                         help="durable C++ op log directory (this process "
                              "is its single writer)")
     parser.add_argument("--storage-dir", default=None,
-                        help="native chunk-store directory for blobs "
-                             "(not ported, ROADMAP A9)")
-    parser.add_argument("--storage-server", default=None, metavar="PORT",
-                        help="route ALL storage to a storage process "
-                             "(not ported, ROADMAP A9)")
+                        help="native chunk-store directory for blobs")
+    parser.add_argument("--storage-server", default=None,
+                        metavar="HOST:PORT|PORT",
+                        help="route ALL storage to a storage_server.py "
+                             "process")
     parser.add_argument("--external-scribe", action="store_true",
-                        help="scribe runs out of process (not ported, "
-                             "ROADMAP A9)")
+                        help="scribe runs out of process (stage_runner "
+                             "--stage scribe); uploads are announced on "
+                             "the log's uploads/<tenant>/<doc> topics")
     parser.add_argument("--consume-backchannel", action="append",
                         default=[], metavar="STATE_DIR",
                         help="a stage process's state dir to consume")
@@ -1799,9 +1797,6 @@ def main() -> None:
                              "spec (not ported, ROADMAP A10)")
     args = parser.parse_args()
     for flag, value, item in (
-            ("--storage-dir", args.storage_dir, "A9"),
-            ("--storage-server", args.storage_server, "A9"),
-            ("--external-scribe", args.external_scribe, "A9"),
             ("--tenant", args.tenant, "A10"),
             ("--tenant-rate", args.tenant_rate, "A10"),
             ("--slo", args.slo, "A10"),
@@ -1816,10 +1811,26 @@ def main() -> None:
         if value:
             raise _not_ported(f"option {flag}", item)
     server = None
-    if args.log_dir:
-        from .durable_log import DurableLog
+    if args.log_dir or args.storage_dir or args.external_scribe \
+            or args.storage_server:
+        log = None
+        if args.log_dir:
+            from .durable_log import DurableLog
 
-        server = LocalServer(log=DurableLog(args.log_dir))
+            log = DurableLog(args.log_dir)
+        storage_server = None
+        if args.storage_server:
+            host, _, port = args.storage_server.rpartition(":")
+            storage_server = (host or "127.0.0.1", int(port))
+        server = LocalServer(log=log, storage_dir=args.storage_dir,
+                             external_scribe=args.external_scribe,
+                             storage_server=storage_server)
+        if args.external_scribe:
+            def announce_upload(tenant, doc, vid, rec, server=server):
+                server.log.append(f"uploads/{tenant}/{doc}",
+                                  {"version_id": vid, "record": rec})
+                server.log.flush()
+            server.on_version_uploaded = announce_upload
     # GC posture for a long-lived service process: the op path allocates
     # acyclic object graphs only (messages, dicts, frames), so the cycle
     # collector buys nothing on the hot path — mid-drain collections

@@ -1,10 +1,8 @@
 """Doc history plane: commit/ref graph, fork, time-travel, integrate.
 
 JAX counterpart: ``fluidframework_tpu/service/history_plane.py``; the
-port's copy, imports rebased to this package. The port's ``LocalServer``
-has no storage directory, so the records always live in the db sink:
-``RefLog`` files under ``<storage_dir>/history`` come with the storage
-tier (ROADMAP A9), and so does the storage process the fork refuses.
+port's copy, imports rebased to this package. A fork over a storage
+process is refused, as in the JAX package.
 
 The reference protocol reserves ``fork``/``integrate`` MessageTypes it
 never implements and models every summary as a git commit with refs
@@ -19,8 +17,9 @@ capture seq, ``chunk_ids`` the content-addressed chunks the generation
 references. **Refs** are named branch heads: ``refs/main`` follows the
 doc's own summary chain; ``fork/<tenant>/<doc>`` on a PARENT pins the
 commit a fork was cut from (the retention contract below). Records
-persist per-doc in the db as torn-tail-tolerant framed records
-(protocol/refgraph.py), so in-proc orderer restarts still recover.
+persist per-doc in a flocked, torn-tail-tolerant append file
+(protocol/refgraph.py) under ``<storage_dir>/history/`` when the server
+has a storage dir, else in the db (in-proc restarts still recover).
 
 **Fork** (``fork(tenant, doc, at_seq) -> new doc``) is O(snapshot)
 bytes ≈ 0: the fork's v0 version record re-references the parent's root
@@ -66,6 +65,7 @@ last and a torn ref record is dropped by CRC.
 from __future__ import annotations
 
 import json
+import os
 import time
 import uuid
 from typing import Optional
@@ -94,8 +94,9 @@ def fork_pin_ref(tenant_id: str, document_id: str) -> str:
 
 
 class _DbRecords:
-    """Record sink/source in the server db: survives in-proc orderer
-    restarts; dies with the process like the rest of the db."""
+    """Record sink/source in the server db (no storage dir): survives
+    in-proc orderer restarts; dies with the process like the rest of the
+    db — the durable deployment uses :class:`refgraph.RefLog` instead."""
 
     def __init__(self, db, col: str):
         self._db = db
@@ -157,10 +158,16 @@ class HistoryPlane:
         self.server = server
         self.counters = tier_counters("service")
         self._docs: dict = {}
+        self._dir = None
+        if server.storage_dir:
+            self._dir = os.path.join(server.storage_dir, "history")
 
     # ------------------------------------------------------------ store
 
     def _sink(self, tenant_id: str, document_id: str):
+        if self._dir is not None:
+            safe = f"{tenant_id}__{document_id}".replace("/", "_")
+            return refgraph.RefLog(os.path.join(self._dir, safe + ".hist"))
         return _DbRecords(self.server.db,
                           f"history-records/{tenant_id}/{document_id}")
 
@@ -423,7 +430,7 @@ class HistoryPlane:
             at_seq = head
         if at_seq > head:
             raise ValueError(f"fork seq {at_seq} is beyond head {head}")
-        if getattr(server, "_storage_conn", None) is not None:
+        if server._storage_conn is not None:
             raise ValueError(
                 "fork over a storage-process deployment is not supported "
                 "yet: the fork's v0 record must land in the storage "

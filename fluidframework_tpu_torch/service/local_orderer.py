@@ -2,10 +2,8 @@
 
 JAX counterpart: ``fluidframework_tpu/service/local_orderer.py``; the
 port's copy, imports rebased to this package. Lazy cold boot (and with it
-the canary tenant's boot counters), the external scribe and the storage
-process's ref hook are not ported yet (lazy boot ROADMAP A10, the scribe
-stage and the storage process A9): the orderer always replays its topics
-from the start, with scribe in-process.
+the canary tenant's boot counters) is not ported yet (ROADMAP A10): the
+orderer always replays its topics from the start.
 
 Ref: memory-orderer/src/localOrderer.ts:88,228-270 — wires actual
 Deli/Broadcaster/Scriptorium/Scribe instances over LocalKafka queues, so
@@ -84,7 +82,12 @@ class LocalOrderer:
         client_timeout: Optional[float] = None,
         logger=None,
         log_retention_ops: Optional[int] = None,
+        external_scribe: bool = False,
+        on_version_persisted=None,
     ):
+        # fires once per newly-acked version, after the durable append —
+        # the storage-process deployment advances the doc's named ref here
+        self._on_version_persisted = on_version_persisted
         self.tenant_id = tenant_id
         self.document_id = document_id
         self._log = log
@@ -147,6 +150,14 @@ class LocalOrderer:
         )
         restore_version_records(log, db, tenant_id, document_id)
 
+        # With an EXTERNAL scribe (per-stage process composition,
+        # service/stage_runner.py), validation/acking happens in the
+        # scribe process; this in-core instance is retained ONLY as the
+        # ref-committer (commit_version is the single ref-update path)
+        # driven by backchannel records — it is not subscribed to the
+        # deltas topic, so its protocol replica stays untouched.
+        self.external_scribe = external_scribe
+
         # deli replays the raw topic from 0 and self-skips via its
         # checkpointed log_offset (crash between append and ticket must
         # replay); scriptorium re-upserts idempotently; the broadcaster must
@@ -157,10 +168,12 @@ class LocalOrderer:
         self._subscriptions = [
             (self.raw_topic, self.deli.handler, 0),
             (self.deltas_topic, self.scriptorium.handler, 0),
-            (self.deltas_topic, self.scribe.handler, 0),
             (self.deltas_topic, self.broadcaster.handler,
              log.length(self.deltas_topic)),
         ]
+        if not external_scribe:
+            self._subscriptions.insert(
+                2, (self.deltas_topic, self.scribe.handler, 0))
         for topic, handler, from_offset in self._subscriptions:
             self._log.subscribe(topic, handler, from_offset=from_offset)
         # re-apply the persisted retention AFTER the deltas-topic replay
@@ -177,10 +190,13 @@ class LocalOrderer:
 
     def persist_version_record(self, handle: str, version: dict) -> None:
         """Append an acked version record to the durable versions topic —
-        the scribe-ref commit path."""
+        the scribe-ref commit path (in-core scribe AND the external
+        scribe's backchannel both land here)."""
         self._dirty = True
         self._log.append(_versions_topic(self.tenant_id, self.document_id),
                          {"handle": handle, "version": dict(version)})
+        if self._on_version_persisted is not None:
+            self._on_version_persisted(handle, dict(version))
 
     def acked_boot_seq(self) -> Optional[int]:
         """Capture seq of the version a joiner would boot from (latest
@@ -212,6 +228,19 @@ class LocalOrderer:
         self.scriptorium.truncate_below(
             self.tenant_id, self.document_id,
             min(capture_seq, boot_seq) - self._retention_margin)
+
+    def commit_external_version(self, handle: str, version: dict) -> None:
+        """Apply an external scribe's version commit (stage_runner
+        backchannel): the stage validated and acked; this process owns
+        the db + versions topic + head."""
+        col = summary_versions_collection(self.tenant_id, self.document_id)
+        existing = self._db.find_one(col, handle)
+        already_acked = bool(existing and existing.get("acked"))
+        self._dirty = True
+        self._db.upsert(col, handle, dict(version))
+        self.scribe.last_summary_head = handle
+        if not already_acked:
+            self.persist_version_record(handle, version)
 
     def close(self) -> None:
         """Detach from the log (partition shutdown); a successor orderer

@@ -3,14 +3,17 @@
 JAX counterpart: ``fluidframework_tpu/service/local_server.py``; the
 port's copy of the in-process constructor path (``LocalServer(...)`` →
 ``connect`` → ``submit``/``submit_array``), imports rebased to this
-package. Options that the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item: ``storage_dir``,
-``storage_server`` and ``external_scribe`` (the native chunk store, the
-storage process and the scribe stage's ref hook, A9; ``storage`` serves
-the in-process ``driver/local.LocalStorage`` only), ``tenants`` (token
-validation), lazy boot with its rehydrator, and the placement epoch fence
-(A10). The placement plane's seal, revoke and lease hooks come with the
-sharded core (A10). The history plane (``history``) is the JAX package's.
+package. ``storage_dir`` puts blobs in the native chunk store
+(``NativeBlobStore``) and the history plane's records in ``RefLog`` files
+under it; ``storage_server`` routes all storage to a storage process
+(``storage_server.py``) and advances the doc's named ref there on every
+scribe ack; ``external_scribe`` leaves validation and acking to a scribe
+stage process (``stage_runner.ScribeStage``). Options that the port does
+not carry yet raise ``NotImplementedError`` naming their ROADMAP item:
+``tenants`` (token validation), lazy boot with its rehydrator, and the
+placement epoch fence (A10). The placement plane's seal, revoke and lease
+hooks come with the sharded core (A10). The history plane (``history``)
+is the JAX package's.
 
 Ref: local-server/src/localDeltaConnectionServer.ts:59-118 (the test
 backbone) and server/tinylicious (the single-process deployment). The
@@ -43,9 +46,9 @@ from ..protocol.messages import (
     Signal,
 )
 from ..utils import TelemetryLogger
-from .blob_store import DbBlobStore
+from .blob_store import DbBlobStore, NativeBlobStore
 from .broadcaster import BroadcasterLambda, PubSub
-from .core import InMemoryDb
+from .core import InMemoryDb, summary_versions_collection
 from .deli import RawBoxcar, RawMessage
 from .local_log import LocalLog
 from .local_orderer import LocalOrderer
@@ -183,12 +186,8 @@ class LocalServer:
         external_scribe: bool = False,
         storage_server=None,
     ):
-        for name, value, item in (("storage_dir", storage_dir, "A9"),
-                                  ("tenants", tenants, "A10"),
-                                  ("external_scribe", external_scribe, "A9"),
-                                  ("storage_server", storage_server, "A9")):
-            if value:
-                raise _not_ported(f"option {name}", item)
+        if tenants:
+            raise _not_ported("option tenants", "A10")
         # unified config registry (SURVEY §5.6): explicit args still win
         self.config = config if config is not None else DEFAULT
         if client_timeout is None:
@@ -206,8 +205,22 @@ class LocalServer:
         # tenant registry (riddler role): the port runs in open dev mode
         # (None), the registry comes with ROADMAP A10
         self.tenants = None
-        # content-addressed blob store, db-backed
-        self.blob_store = DbBlobStore(self.db)
+        # content-addressed blob store: native C++ chunk store when given
+        # a directory (the gitrest/libgit2 role), else db-backed
+        self.storage_dir = storage_dir
+        if storage_dir is not None:
+            self.blob_store = NativeBlobStore(storage_dir)
+        else:
+            self.blob_store = DbBlobStore(self.db)
+        # storage as its own PROCESS (storage_server.py — the
+        # gitrest+historian role): all storage reads/writes and the
+        # scribe's ref updates route to it instead of this process's
+        # blob store
+        self._storage_conn = None
+        if storage_server is not None:
+            from .storage_client import StorageConnection
+
+            self._storage_conn = StorageConnection(*storage_server)
         # doc history plane (commit/ref graph over snapshot generations):
         # constructed on first use — the summarizer's commit hook, the
         # history doors, and chunk GC all go through it
@@ -215,6 +228,12 @@ class LocalServer:
         # summary-upload accounting (handle reuse), per server
         self.storage_stats = {"handles_reused": 0, "trees_written": 0,
                               "blobs_written": 0}
+        # per-stage process composition (stage_runner.py): scribe runs in
+        # its own OS process; uploads are announced to it via the hook
+        self.external_scribe = external_scribe
+        # fired as (tenant, doc, version_id, record) after a summary
+        # upload lands in the versions collection
+        self.on_version_uploaded = None
         self._orderers: dict[str, LocalOrderer] = {}
         self._auto_drain = auto_drain
         self._clock = clock
@@ -324,11 +343,35 @@ class LocalServer:
         return conn
 
     def storage(self, tenant_id: str, document_id: str):
-        """The doc's storage binding, the in-process store. Every storage
-        consumer (summarizer, drivers) goes through here."""
+        """The doc's storage binding: the in-proc store, or the storage
+        PROCESS when one is deployed. Every storage consumer (front-end
+        RPCs, summarizer, drivers) goes through here."""
+        if self._storage_conn is not None:
+            from .storage_client import RemoteStorage
+
+            def on_uploaded(vid, record, tenant=tenant_id,
+                            doc=document_id):
+                # mirror the version record into this process's db —
+                # scribe validation reads it there — and announce it
+                # (external scribe stages learn of uploads this way)
+                self.db.upsert(summary_versions_collection(tenant, doc),
+                               vid, dict(record))
+                hook = self.on_version_uploaded
+                if hook is not None:
+                    hook(tenant, doc, vid, dict(record))
+            return RemoteStorage(self._storage_conn, tenant_id,
+                                 document_id, on_uploaded=on_uploaded)
         from ..driver.local import LocalStorage
 
         return LocalStorage(self, tenant_id, document_id)
+
+    def commit_storage_ref(self, tenant_id: str, document_id: str,
+                           handle: str) -> None:
+        """Advance the doc's named head in the storage process after a
+        scribe ack (no-op for in-proc storage, whose acked flag plays
+        the ref role)."""
+        if self._storage_conn is not None:
+            self.storage(tenant_id, document_id).commit_ref(handle)
 
     def get_deltas(
         self, tenant_id: str, document_id: str, from_seq: int, to_seq: int
@@ -428,10 +471,17 @@ class LocalServer:
             if self._client_timeout is not None:
                 kw["client_timeout"] = self._client_timeout
             retention = self.config.log_retention_ops
+            on_persisted = None
+            if self._storage_conn is not None:
+                def on_persisted(handle, version, t=tenant_id,
+                                 d=document_id):
+                    self.commit_storage_ref(t, d, handle)
             self._orderers[key] = LocalOrderer(
                 tenant_id, document_id, self.log, self.db, self.pubsub,
                 clock=self._clock, logger=self.logger,
                 log_retention_ops=retention if retention >= 0 else None,
+                external_scribe=self.external_scribe,
+                on_version_persisted=on_persisted,
                 **kw)
         return self._orderers[key]
 

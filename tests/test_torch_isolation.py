@@ -81,6 +81,22 @@ NETWORK = ("service/front_end.py", "service/admission.py",
            "replay/tool.py", "protocol/binwire.py")
 
 
+#: the storage tier: the chunk store's binding, the commit/ref DAG, the
+#: storage process and its client, and the modules that gained its options
+STORAGE = ("native/chunkstore.py", "native/__init__.py",
+           "service/blob_store.py", "service/git_store.py",
+           "service/storage_server.py", "service/storage_client.py",
+           "service/local_server.py", "service/local_orderer.py",
+           "service/history_plane.py", "service/front_end.py",
+           "service/stage_runner.py")
+
+
+def test_sources_cover_the_storage_tier():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(STORAGE)
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
 def test_sources_cover_the_network_tier():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(NETWORK)
@@ -206,6 +222,47 @@ def test_native_gateway_builds_only_from_port_sources(monkeypatch, tmp_path):
     sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
     assert sources == [PORT / "csrc" / "gateway.cpp"]
     assert native_gateway.load_library is native_build.load_library
+
+
+def test_chunk_store_builds_only_from_port_sources(monkeypatch, tmp_path):
+    """The chunk store is compiled from the port's own copy of its source,
+    and the port's blob store binds that build (never the JAX package's
+    loader or an in-memory stand-in)."""
+    import subprocess
+
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.native import chunkstore
+    from fluidframework_tpu_torch.service import blob_store
+
+    commands = []
+
+    def fake_run(cmd, **kwargs):
+        commands.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build.subprocess, "run", fake_run)
+    lib = native_build.build("chunkstore")
+    assert lib.parent == tmp_path / "build" and lib.exists()
+    (cmd,) = commands
+    sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert sources == [PORT / "csrc" / "chunkstore.cpp"]
+    assert chunkstore.load_library is native_build.load_library
+    assert blob_store.NativeChunkStore is chunkstore.NativeChunkStore
+
+
+def test_chunk_store_build_failure_raises(monkeypatch, tmp_path):
+    """Without g++ a storage directory cannot be opened: the server raises
+    and never falls back to the db-backed blob store."""
+    from fluidframework_tpu_torch.native import build as native_build
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+
+    monkeypatch.setattr(native_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        LocalServer(storage_dir=str(tmp_path / "blobs"))
 
 
 def test_native_build_needs_gxx(monkeypatch, tmp_path):

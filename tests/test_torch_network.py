@@ -543,8 +543,12 @@ def test_scripted_streams_equal_jax():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--storage-dir", "x"], "A9"), (["--external-scribe"], "A9"),
-    (["--storage-server", "1"], "A9"), (["--tenant", "a:b"], "A10"),
+    # the storage tier's flags work alone; beside a sharded core (whose
+    # partition host takes the storage server) they still refuse
+    (["--storage-server", "1", "--shard-dir", "x"], "A10"),
+    (["--external-scribe", "--shards", "2"], "A10"),
+    (["--storage-dir", "x", "--prefer", "0"], "A10"),
+    (["--tenant", "a:b"], "A10"),
     (["--tenant-rate", "a:5"], "A10"), (["--slo", "x"], "A10"),
     (["--probe"], "A10"), (["--shard-dir", "x"], "A10"),
     (["--topology", "x"], "A10"), (["--rebalance"], "A10"),
@@ -567,10 +571,6 @@ def test_unported_front_end_planes_raise():
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         NetworkFrontEnd(shard_host=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        fe._on_backchannel_record(type("M", (), {"value": {
-            "kind": "version", "tenant": "t", "doc": "d",
-            "handle": "h", "version": {}}})())
 
 
 # ------------------------------------------------ the socket load

@@ -1,14 +1,17 @@
 """The port's service summarizer, from the replica farm's state on the
 CPU, and against the JAX package's.
 
-Every test of ``tests/test_service_summarizer.py`` but the one that needs
-``storage_dir`` (the native chunk store, not ported yet), run on the
-port with ``GpuDocumentApplier(device="cpu")``; then the same streams
-through both packages' summarizers (the JAX one over ``TpuDocumentApplier``
-on JAX's CPU backend): the same chunk bytes, root records, version
-records, refusal messages and chunk reuse, and everything the two servers
-store equal, the history plane's commit records included (decoded,
-without their wall-clock ``ts``).
+Every test of ``tests/test_service_summarizer.py``, run on the port with
+``GpuDocumentApplier(device="cpu")``; then the same streams through both
+packages' summarizers (the JAX one over ``TpuDocumentApplier`` on JAX's
+CPU backend): the same chunk bytes, root records, version records,
+refusal messages and chunk reuse, and everything the two servers store
+equal, the history plane's commit records included (decoded, without
+their wall-clock ``ts``). Over a ``storage_dir`` (the native chunk store
+and the history plane's ``RefLog`` files) the two packages write the same
+object files and the same history records, and a summary survives the
+death of the whole process, as does the retention it allowed (the twin
+of ``tests/test_native.py``'s durable restart).
 """
 
 import pytest
@@ -371,14 +374,14 @@ def _feed_new(st, applier, server, doc, upto=None):
             applier.ingest("t", doc, m, m.contents)
 
 
-def _fleet(pkg: str) -> dict:
+def _fleet(pkg: str, **server_kw) -> dict:
     """Four docs through one package: a long single-writer doc, a doc two
     containers edit, a doc with a map (refused) and a doc whose applier
     lags (refused); a summary pass, an append to the long doc and a
     second pass. Returns what the passes report and what the server
     stores."""
     st = stack(pkg)
-    server = st.server()
+    server = st.server(**server_kw)
     loader = st.Loader(st.LocalDocumentServiceFactory(server))
     strings = {}
     for d in DOCS:
@@ -510,3 +513,133 @@ def test_host_replica_source_equals_jax():
     got, want = _host_replica_summary("torch"), _host_replica_summary("jax")
     assert got == want
     assert got[2] == "host and the farm"
+
+
+# ------------------------------------------------ over a storage directory
+
+
+def test_service_summary_survives_full_process_death(tmp_path):
+    """A service-written summary commits through the scribe's ref-update
+    path into the durable versions topic, its blobs into the native chunk
+    store: after the whole process dies a fresh client boots from it."""
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+
+    path = str(tmp_path / "svc-log")
+    blobs = str(tmp_path / "blobs")  # blob durability = native chunkstore
+    server = LocalServer(log=DurableLog(path), storage_dir=blobs)
+    loader = Loader(LocalDocumentServiceFactory(server))
+    c1 = loader.resolve("t", "doc")
+    s1 = c1.runtime.create_data_store("default").create_channel(
+        "text", "shared-string")
+    s1.insert_text(0, "durable service summary")
+
+    applier = cpu_applier(max_docs=4, max_slots=64, ops_per_dispatch=8)
+    applier.set_replay_source(lambda t, d: [])
+    feed(applier, server, "t", "doc")
+    version = ServiceSummarizer(server, applier).summarize_doc("t", "doc")
+    server.checkpoint_all()
+    server.log.sync()
+    server.log.close()
+    server.blob_store.close()
+    del server
+
+    server2 = LocalServer(log=DurableLog(path), storage_dir=blobs)
+    # the acked version was restored from the durable topic, not lost
+    scribe2 = server2._get_orderer("t", "doc").scribe
+    assert scribe2.last_summary_head == version
+    c2 = Loader(LocalDocumentServiceFactory(server2)).resolve("t", "doc")
+    assert c2._base_snapshot is not None
+    assert (c2.runtime.get_data_store("default").get_channel("text")
+            .get_text() == "durable service summary")
+    # the history plane's commit landed in its RefLog file
+    hist = tmp_path / "blobs" / "history" / "t__doc.hist"
+    assert server2.history.log("t", "doc")[0]["version"] == version
+    assert hist.stat().st_size > 0
+    server2.log.close()
+
+
+def _hist_records(pkg: str, directory) -> dict:
+    """Every ``.hist`` file under ``directory`` decoded by its package's
+    reader, without the wall-clock ``ts``."""
+    from importlib import import_module
+
+    refgraph = import_module({"jax": "fluidframework_tpu",
+                              "torch": "fluidframework_tpu_torch"}[pkg]
+                             + ".protocol.refgraph")
+    return {p.name: [{k: v for k, v in r.items() if k != "ts"}
+                     for r in refgraph.RefLog(str(p)).load()]
+            for p in sorted(directory.glob("*.hist"))}
+
+
+def test_storage_dir_summaries_equal_jax(tmp_path):
+    """The same fleet through both packages over a storage directory:
+    the native chunk store holds the same object files, id for id, and
+    the history plane's ``RefLog`` files hold the same records; what the
+    servers keep in their db and log is equal too."""
+    runs = {pkg: _fleet(pkg, storage_dir=str(tmp_path / pkg))
+            for pkg in ("jax", "torch")}
+    objects = {pkg: sorted(p.relative_to(tmp_path / pkg).as_posix()
+                           for p in (tmp_path / pkg).rglob("*")
+                           if p.is_file() and p.parent.name != "history")
+               for pkg in runs}
+    assert objects["torch"] == objects["jax"] != []
+    hist = {pkg: _hist_records(pkg, tmp_path / pkg / "history")
+            for pkg in runs}
+    assert hist["torch"] == hist["jax"]
+    assert set(hist["torch"]) == {"t__long.hist", "t__edit.hist"}
+    assert all(any(r["t"] == "commit" for r in recs)
+               for recs in hist["torch"].values())
+    for key in ("first", "second", "heads", "roots", "counts", "stored"):
+        assert runs["torch"][key] == runs["jax"][key], key
+    assert not any(k.startswith("db:history-records/")
+                   for k in runs["torch"]["stored"])
+    for run in runs.values():
+        run["server"].blob_store.close()
+
+
+def test_durable_restart_with_truncated_retention(tmp_path):
+    """Retention + durable restart over a storage directory: the raw-log
+    replay after a restart re-tickets sequenced records, and scriptorium
+    must NOT resurrect the prefix it truncated behind an acked summary."""
+    from fluidframework_tpu_torch.config import Config
+    from fluidframework_tpu_torch.runtime.summarizer import SummaryManager
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+
+    path = str(tmp_path / "svc-log")
+    blobs = str(tmp_path / "blobs")
+    cfg = Config().with_overrides(log_retention_ops=3)
+    server = LocalServer(log=DurableLog(path), config=cfg,
+                         storage_dir=blobs)
+    loader = Loader(LocalDocumentServiceFactory(server))
+    c1 = loader.resolve("t", "doc")
+    sm = SummaryManager(c1, max_ops=10**9)
+    s1 = c1.runtime.create_data_store("default").create_channel(
+        "text", "shared-string")
+    for i in range(20):
+        s1.insert_text(0, f"{i % 10}")
+    sm.summarize_now()
+    orderer = server._get_orderer("t", "doc")
+    base = orderer.scriptorium.retained_base("t", "doc")
+    assert base > 0
+    server.checkpoint_all()
+    server.log.sync()
+    server.log.close()
+    server.blob_store.close()
+    del server
+
+    server2 = LocalServer(log=DurableLog(path), config=cfg,
+                          storage_dir=blobs)
+    loader2 = Loader(LocalDocumentServiceFactory(server2))
+    c2 = loader2.resolve("t", "doc")  # boots from summary + retained tail
+    s2 = c2.runtime.get_data_store("default").get_channel("text")
+    assert s2.get_text() == s1.get_text()
+    o2 = server2._get_orderer("t", "doc")
+    assert o2.scriptorium.retained_base("t", "doc") == base
+    first_kept = min(
+        (m.sequence_number
+         for m in o2.scriptorium.get_deltas("t", "doc", base, 10**9)),
+        default=None)
+    assert first_kept is None or first_kept > base
+    s2.insert_text(0, "alive ")
+    assert s2.get_text().startswith("alive ")
+    server2.log.close()

@@ -3,7 +3,8 @@
 stage process (``stage_runner --stage applier --device cpu``) tailing its
 durable log, twin of ``tests/test_split_service.py::
 test_applier_stage_catches_up_and_survives_kill`` with the applier stage
-only (the external scribe and the chunk store are ROADMAP A9).
+only (the scribe stage and the chunk store run in
+``tests/test_torch_external_scribe.py``).
 
 A client over sockets writes a doc; the stage reports applied seqs on its
 backchannel, which the core consumes: the core's status RPC shows
