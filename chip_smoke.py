@@ -735,8 +735,8 @@ class _StageProcess:
     backchannel (the newest ``applied`` seq per doc)."""
 
     def __init__(self, log_dir: str, state_dir: str, device: str,
-                 err_path: str):
-        self.state_dir = state_dir
+                 err_path: str, what: str = "split"):
+        self.state_dir, self.what = state_dir, what
         self.started = time.perf_counter()
         self.err = open(err_path, "a")
         self.proc = subprocess.Popen(
@@ -756,7 +756,7 @@ class _StageProcess:
         reader.join(CHILD_TIMEOUT_S)
         if not ready or ready[0].strip() != "READY":
             self.kill()
-            fail(f"split: the stage process did not print READY "
+            fail(f"{what}: the stage process did not print READY "
                  f"(got {ready}, rc {self.proc.poll()}); stderr in "
                  f"{err_path}")
         self.ready = time.perf_counter()
@@ -771,7 +771,8 @@ class _StageProcess:
         )
 
         if self.proc.poll() is not None:
-            fail(f"split: the stage process exited ({self.proc.returncode})")
+            fail(f"{self.what}: the stage process exited "
+                 f"({self.proc.returncode})")
         if self.log is None:
             self.log = DurableLog(self.state_dir, readonly=True)
         n = self.log.refresh_topic(BACKCHANNEL_TOPIC)
@@ -793,7 +794,7 @@ class _StageProcess:
                 return time.perf_counter() - t0
             if time.perf_counter() - t0 > CHILD_TIMEOUT_S:
                 self.kill()
-                fail(f"split: the stage did not catch up in "
+                fail(f"{self.what}: the stage did not catch up in "
                      f"{CHILD_TIMEOUT_S} s")
             time.sleep(0.005)
 
@@ -1969,6 +1970,25 @@ def _network_statuses(rpc, docs: list) -> dict:
     return out
 
 
+def _settled_seqs(rpc, docs: list, phase: str) -> dict:
+    """doc → its seq at the core once every doc's applierSeq is at it and
+    two reads half a second apart agree (a closed client's leave is
+    sequenced after its socket closes)."""
+    deadline = time.time() + CHILD_TIMEOUT_S
+    last = None
+    while True:
+        status = _network_statuses(rpc, docs)
+        if status == last and all(s == a for s, a in status.values()):
+            return {d: s for d, (s, _) in status.items()}
+        if time.time() > deadline:
+            moving = [d for d in docs if status[d][0] != status[d][1]
+                      or last is None or status[d] != last[d]]
+            fail(f"{phase}: the docs' seqs did not settle with their "
+                 f"applierSeq (first {moving[0]}: {status[moving[0]]})")
+        last = status
+        time.sleep(0.5)
+
+
 def _cpu_seconds(pid: int) -> float:
     """User plus system CPU seconds a process has used so far."""
     with open(f"/proc/{pid}/stat") as f:
@@ -2623,7 +2643,6 @@ def _storage_composition(root: str, row: dict, device: str) -> None:
                      f"{first}: {status[first]})")
             time.sleep(0.05)
         out["catch_up_lag_seconds"] = [lag[0], lag[1]]
-        seqs = {d: status[d][0] for d in docs}
 
         # the scribe PROCESS acked each container's summary; the ref walks
         scribe_bc = _stage_applied(sstate)
@@ -2654,15 +2673,18 @@ def _storage_composition(root: str, row: dict, device: str) -> None:
         out["boot_seconds"] = time.perf_counter() - t0
 
         # each stage reported exactly its partition, at every doc's tail
+        # (read again: the boots above joined and left the container docs)
+        seqs = _settled_seqs(rpc, docs, "storage")
         for k in range(2):
             applied = _stage_applied(astates[k])["applied"]
             if set(applied) != set(owned[k]):
                 fail(f"storage: applier stage {k} reported "
                      f"{len(applied)} docs, owns {len(owned[k])}")
-            late = [d for d in owned[k] if applied[d] != seqs[d]]
-            if late:
-                fail(f"storage: applier stage {k} is behind on "
-                     f"{len(late)} docs (first {late[0]})")
+            off = [d for d in owned[k] if applied[d] != seqs[d]]
+            if off:
+                fail(f"storage: applier stage {k} is off the tail on "
+                     f"{len(off)} docs (first {off[0]}: applied "
+                     f"{applied[off[0]]}, seq {seqs[off[0]]})")
         out["cpu_seconds_total"] = {k: _cpu_seconds(pid)
                                     for k, pid in servers.items()}
         # each stage's farm against a CPU applier over the core's log
@@ -2753,6 +2775,538 @@ def phase_storage(power: str, device: str = "cuda"):
     return launches
 
 
+#: each of the load's two halves (48 ops a client in all)
+SHARDED_RUN = dict(workers=4, docs_per_worker=256, clients_per_doc=2,
+                   rounds=2, batch=12, rate=0.4)
+#: the lease TTL. A core heartbeats every TTL/3 from its event loop and
+#: refuses orders once 75% of the TTL passes without one (``lease_fresh``);
+#: a peer takes its partitions over after the whole TTL. On the card's
+#: machine ``bench.py::bench_migration_blip``'s 1.5 s fenced the cores in
+#: the 2,048-client connect storm; at 5 s heartbeats lapsed 3.4-3.9 s
+#: apart beside the earlier phases (a live core taken over twice in three
+#: whole runs), at 15 s up to 9.9 s apart: the loop's 9p writes (the
+#: per-batch log flush, the 2 s checkpoint pass over ~540 dirty docs) hold
+#: the heartbeat back for seconds. 30 s leaves the fence 22.5 s.
+SHARDED_TTL_S = 30.0
+SHARDED_PROBES = 8
+SHARDED_TAIL_DOCS = 64
+SHARDED_TAIL_OPS = 3
+#: seconds of probe alone before the migration (its baseline: the ops
+#: acked in it) and after the migration's reply (its window: the ops in
+#: flight at any time from the seal to this long after the flip)
+SHARDED_PROBE_WINDOW_S = 5.0
+
+
+#: seconds between two probe ops (one op in flight at a time)
+SHARDED_PROBE_PACE_S = 0.02
+
+
+class _Probe:
+    """Containers writing one op at a time, each waited on until acked:
+    ``(sent wall time, acked wall time)`` per op, on a thread of its own.
+    A container whose core died rides ``auto_reconnect``; its op acks once
+    the new owner has it. The ops alternate an insert of one character at
+    0 and its removal, so a probe doc's text ends as it began and zamboni
+    frees its slots: thousands of one-character inserts would overflow a
+    doc's S=256 slots."""
+
+    def __init__(self, strings: list, containers: list):
+        self.strings, self.containers = strings, containers
+        self.samples: list = []
+        self.stop = threading.Event()
+        self.error: list = []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def step(self, i: int) -> tuple:
+        """Op ``i``: container ``i mod n``, an insert on even rounds and
+        its removal on odd ones."""
+        n = len(self.strings)
+        s, c = self.strings[i % n], self.containers[i % n]
+        t0 = time.time()
+        self.inflight = (i, t0)
+        if (i // n) % 2:
+            s.remove_text(0, 1)
+        else:
+            s.insert_text(0, "p")
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while c.runtime.pending.count:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"probe op {i} never acked")
+            time.sleep(0.0005)
+        return t0, time.time()
+
+    def _run(self) -> None:
+        try:
+            while not self.stop.is_set():
+                self.samples.append(self.step(len(self.samples)))
+                time.sleep(SHARDED_PROBE_PACE_S)
+        except Exception as e:  # noqa: BLE001 — reported by join()
+            self.error.append(repr(e))
+
+    def join(self) -> None:
+        """Stop after a whole number of insert/remove rounds."""
+        self.stop.set()
+        self.thread.join(CHILD_TIMEOUT_S)
+        if self.error or self.thread.is_alive():
+            fail(f"sharded: the probe failed ({self.error or 'hung'})")
+        while len(self.samples) % (2 * len(self.strings)):
+            self.samples.append(self.step(len(self.samples)))
+
+
+class _LeaseWatch:
+    """Samples each partition lease file's mtime (a heartbeat touches it)
+    every 50 ms on a thread: the longest gap between two heartbeats a
+    partition's owner landed, against the fence at 75% of the TTL."""
+
+    def __init__(self, shard: str, n: int):
+        self.paths = [os.path.join(shard, "placement", f"part-{k}.lease")
+                      for k in range(n)]
+        self.last = [None] * n
+        self.max_gap = [0.0] * n
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.stop.wait(0.05):
+            for k, path in enumerate(self.paths):
+                try:
+                    m = os.stat(path).st_mtime
+                except OSError:
+                    continue
+                if self.last[k] is not None and m != self.last[k]:
+                    self.max_gap[k] = max(self.max_gap[k], m - self.last[k])
+                self.last[k] = m
+
+    def join(self) -> list:
+        self.stop.set()
+        self.thread.join(5)
+        return self.max_gap
+
+
+def _journal_seal_to_flip_ms(shard: str, epoch: int):
+    """ms from the source core's ``migration.seal`` to the ``epoch.bump``
+    that recorded ``epoch`` (the adopting core's), from the cores'
+    journals in the shard dir; None when either entry is missing."""
+    entries = []
+    jdir = os.path.join(shard, "journal")
+    for name in os.listdir(jdir) if os.path.isdir(jdir) else ():
+        with open(os.path.join(jdir, name)) as f:
+            entries += [json.loads(ln) for ln in f if ln.strip()]
+    bump = [e["ts"] for e in entries if e.get("kind") == "epoch.bump"
+            and e.get("epoch") == epoch]
+    seal = [e["ts"] for e in entries if e.get("kind") == "migration.seal"
+            and bump and e["ts"] <= bump[0]]
+    if not bump or not seal:
+        return None
+    return (bump[0] - max(seal)) * 1e3
+
+
+def _replay_log(log_dir: str, docs: list) -> dict:
+    """Each doc's deltas topic of one partition log through the port's
+    ``InvariantMonitor`` (no seq gap, no duplicate join or clientSeq, msn
+    monotone); re-ticketed seqs must carry the same message. Returns
+    counts and each doc's last seq."""
+    from fluidframework_tpu_torch.chaos.monitor import InvariantMonitor
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.utils.telemetry import Counters
+
+    log = DurableLog(log_dir, readonly=True)
+    out = {"observed": 0, "redelivered": 0, "last": {}}
+    try:
+        for doc in docs:
+            topic = f"deltas/bench/{doc}"
+            monitor = InvariantMonitor(Counters())
+            seen: dict = {}
+            for i in range(log.refresh_topic(topic)):
+                rec = log.read(topic, i)
+                msgs = (rec["abatch"].messages() if "abatch" in rec
+                        else rec.get("boxcar") or [rec["message"]])
+                for m in msgs:
+                    key = (m.client_id, m.client_sequence_number,
+                           str(m.type), json.dumps(m.contents,
+                                                   sort_keys=True))
+                    if seen.setdefault(m.sequence_number, key) != key:
+                        fail(f"sharded: {log_dir} re-ticketed seq "
+                             f"{m.sequence_number} of {doc} with another "
+                             "message")
+                    monitor.observe(m)
+            try:
+                monitor.check()
+            except AssertionError as e:
+                fail(f"sharded: {doc} in {log_dir}: {e}")
+            out["observed"] += monitor.observed
+            out["redelivered"] += monitor.redelivered
+            out["last"][doc] = monitor.last_seq
+    finally:
+        log.close()
+    return out
+
+
+def _sharded_postmortem(shard: str, row: dict, err_path: str) -> None:
+    """On a failed phase: the row so far, the epoch table and the cores'
+    control-plane journals (leases, epochs, migrations), to stderr and
+    the phase's stderr file."""
+    lines = [f"sharded postmortem: row {json.dumps(row, default=str)}"]
+    try:
+        with open(os.path.join(shard, "placement", "table.json")) as f:
+            lines.append(f"table {f.read()}")
+    except OSError as e:
+        lines.append(f"table unreadable: {e}")
+    jdir = os.path.join(shard, "journal")
+    for name in sorted(os.listdir(jdir)) if os.path.isdir(jdir) else ():
+        with open(os.path.join(jdir, name)) as f:
+            for ln in f:
+                if any(k in ln for k in ('"lease.', '"epoch.', '"migration.',
+                                         '"core.')):
+                    lines.append(f"{name}: {ln.strip()}")
+    text = "\n".join(lines)
+    print(text, file=sys.stderr, flush=True)
+    with open(err_path, "a") as f:
+        f.write(text + "\n")
+
+
+def phase_sharded(power: str, device: str = "cuda"):
+    """The sharded ordering core as processes of the port, from one
+    ``TopologySpec``: two cores over one shard dir (``--shards 2``, core
+    ``i`` preferring partition ``i``, lease TTL ``SHARDED_TTL_S``), two
+    shard-routing gateways (the asyncio relay, as the JAX package runs
+    them) and one applier stage child on ``device`` a partition log
+    (``log-<k>``, D=1024, S=256). The socket load (1024 docs x 2 clients x 48 ops, boxcars of
+    12 at 0.4 Hz, through the gateways) runs in two halves; between them
+    partition 0 migrates live from core 0 to core 1 (``admin_migrate_part``)
+    while 8 containers probe; then core 1, owner of both partitions, is
+    killed with SIGKILL, core 0 takes both over after the TTL and 64
+    containers write a tail. Checks: every stage's farm equals a CPU
+    applier fed its whole log and the containers' texts, every doc's
+    ``applied`` record reaches its last seq, each log replays through the
+    invariant monitor with no gap or duplicate, each partition's epoch
+    rises at every ownership change, the ex-owner refuses the moved
+    partition and the dead core any connect, and no doc escalates. B1's
+    launches are the children's own: their ``applied`` records and
+    checkpoints prove them."""
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+    from fluidframework_tpu_torch.service.placement_plane import (
+        EpochTable,
+        admin_rpc,
+    )
+    from fluidframework_tpu_torch.service.stage_runner import (
+        ApplierStage,
+        doc_partition,
+    )
+    from fluidframework_tpu_torch.service.topology import (
+        CoreSpec,
+        Fleet,
+        GatewaySpec,
+        TopologySpec,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "smoke", "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    err_path = os.path.join(HERE, "build", "smoke", "sharded_stderr.txt")
+    open(err_path, "w").close()
+    shard = os.path.join(root, "deploy")
+    run = SHARDED_RUN
+    load_docs = [f"shd{w}d{d}" for w in range(run["workers"])
+                 for d in range(run["docs_per_worker"])]
+    cont_docs = [f"shc{i}" for i in range(SHARDED_TAIL_DOCS)]
+    docs = load_docs + cont_docs
+    owned = {k: [d for d in docs if doc_partition("bench", d, 2) == k]
+             for k in range(2)}
+    row = {"phase": "sharded", "docs": len(docs), **run,
+           "halves": 2, "lease_ttl_s": SHARDED_TTL_S,
+           "docs_per_partition": [len(owned[0]), len(owned[1])]}
+    # boot_rate=0 disarms boot-storm admission: it parks first routes to
+    # cold docs on a retry lane that the socket load's raw clients do not
+    # ride (every doc of this run is new, so nothing is rehydrated)
+    spec = TopologySpec(
+        shard_dir=shard, n_partitions=2, lease_ttl=SHARDED_TTL_S,
+        boot_rate=0.0,
+        cores=[CoreSpec(name=f"core{i}", prefer=[i]) for i in range(2)],
+        gateways=[GatewaySpec(name=f"gw{i}") for i in range(2)])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    table = EpochTable.for_shard_dir(shard)
+    procs, stages, conts = [], [], []
+    fleet = Fleet(spec, subprocess=True, env=env)
+
+    def epoch(k):
+        return table.read()["parts"][str(k)]["epoch"]
+
+    def owner(k):
+        return table.read()["parts"][str(k)]["addr"]
+
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        # the fleet's children write to pipes: drain them into the
+        # stderr file so that no child blocks on a full pipe
+        for p in [*fleet.procs.values(), *fleet.gw_procs.values()]:
+            threading.Thread(target=lambda p=p: shutil.copyfileobj(
+                p.stdout, open(err_path, "a")), daemon=True).start()
+        fleet.wait_claimed(timeout=CHILD_TIMEOUT_S)
+        addr = {i: f"{spec.host}:{fleet.core_ports[i]}" for i in range(2)}
+        if owner(0) != addr[0] or owner(1) != addr[1]:
+            fail(f"sharded: the cores claimed {table.read()['parts']}")
+        epochs = {k: [epoch(k)] for k in range(2)}
+        leases = _LeaseWatch(shard, 2)
+        # live until the kill, so that a postmortem shows it too
+        row["lease_heartbeat_gap_max_s"] = leases.max_gap
+        for i, gp in fleet.gw_procs.items():
+            with open(f"/proc/{gp.pid}/maps") as f:
+                if "libgateway" in f.read():
+                    fail(f"sharded: gateway {i} mapped the native relay; "
+                         "the sharded routing runs the asyncio relay")
+        row["relay"] = "python asyncio (--shard-dir routing)"
+        for k in range(2):
+            proc = _StageProcess(os.path.join(shard, f"log-{k}"),
+                                 os.path.join(root, f"stage{k}"), device,
+                                 err_path, what=f"sharded stage {k}")
+            stages.append(proc)
+        row["start_seconds"] = time.perf_counter() - t0
+        gw_ports = [fleet.gw_ports[0], fleet.gw_ports[1]]
+        servers = {"core0": fleet.procs[0].pid, "core1": fleet.procs[1].pid,
+                   "gw0": fleet.gw_procs[0].pid,
+                   "gw1": fleet.gw_procs[1].pid,
+                   "stage0": stages[0].proc.pid,
+                   "stage1": stages[1].proc.pid}
+
+        # 64 containers through the gateways, riding auto_reconnect
+        t0 = time.perf_counter()
+        strings = []
+        for i, d in enumerate(cont_docs):
+            c = Loader(NetworkDocumentServiceFactory(
+                "127.0.0.1", gw_ports[i % 2]), auto_reconnect=True
+            ).resolve("bench", d)
+            s = c.runtime.create_data_store("default").create_channel(
+                "text", "shared-string")
+            s.insert_text(0, f"doc {i} ")
+            conts.append(c)
+            strings.append(s)
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while any(c.runtime.pending.count for c in conts):
+            if time.monotonic() > deadline:
+                fail("sharded: the containers' first ops were not acked")
+            time.sleep(0.01)
+        row["containers_seconds"] = time.perf_counter() - t0
+        probe = _Probe(strings[:SHARDED_PROBES], conts[:SHARDED_PROBES])
+
+        # half 1, then the live migration of partition 0 under the probe,
+        # then half 2: the socket load's raw clients resubmit shed nacks
+        # but do not reconnect, so the migration falls between the halves
+        halves = []
+        load, last_ack = _run_load(run, gw_ports + gw_ports, "shd", servers,
+                                   procs, err_path, "sharded")
+        halves.append(load)
+        time.sleep(SHARDED_PROBE_WINDOW_S)
+        t_mig = time.time()
+        t0 = time.perf_counter()
+        res = admin_rpc("127.0.0.1", fleet.core_ports[0], {
+            "t": "admin_migrate_part", "k": 0, "target": addr[1]},
+            timeout=60.0)
+        rpc_ms = (time.perf_counter() - t0) * 1e3
+        t_flip = time.time()
+        if res.get("target") != addr[1] or owner(0) != addr[1]:
+            fail(f"sharded: the migration answered {res}")
+        epochs[0].append(epoch(0))
+        # the ex-owner refuses the moved partition's docs
+        try:
+            NetworkDocumentServiceFactory(
+                "127.0.0.1", fleet.core_ports[0]).create_document_service(
+                "bench", owned[0][0]).connect_to_delta_stream()
+            fail("sharded: core 0 still serves partition 0 after the "
+                 "migration")
+        except RuntimeError as e:
+            if "not the owner" not in str(e):
+                raise
+        t_end = t_flip + SHARDED_PROBE_WINDOW_S
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while not probe.error and time.monotonic() < deadline and not [
+                a for a, b in probe.samples if a >= t_end]:
+            time.sleep(0.05)
+        samples = list(probe.samples)
+        base = [(b - a) * 1e3 for a, b in samples
+                if t_mig - SHARDED_PROBE_WINDOW_S <= b < t_mig]
+        window = [(b - a) * 1e3 for a, b in samples
+                  if a < t_end and b >= t_mig]
+        if not base or not window:
+            near = [(round(a - t_mig, 3), round(b - t_mig, 3))
+                    for a, b in probe.samples[-6:]]
+            near.append([(c.connected, c.runtime.pending.count)
+                         for c in probe.containers])
+            near.append((probe.inflight[0],
+                         round(probe.inflight[1] - t_mig, 3), probe.error))
+            fail(f"sharded: the probe wrote {len(base)} ops before and "
+                 f"{len(window)} across the migration (of "
+                 f"{len(probe.samples)}; sent and acked around it, s from "
+                 f"the migration: {near}; half 1 ended "
+                 f"{round(last_ack - t_mig, 3)} s from it)")
+        row["migration"] = {
+            "rpc_ms": rpc_ms,
+            "seal_to_flip_ms": _journal_seal_to_flip_ms(
+                shard, res.get("epoch")),
+            "probe_baseline_p99_ms": _pct(base, 0.99),
+            "probe_window_p99_ms": _pct(window, 0.99),
+            "probe_window_max_ms": max(window),
+            "probe_ops": [len(base), len(window)]}
+
+        # half 2, with core 1 now the owner of both partitions
+        load, last_ack = _run_load(run, gw_ports + gw_ports, "shd", servers,
+                                   procs, err_path, "sharded")
+        halves.append(load)
+        row["halves_load"] = halves
+        row["cpu_seconds_before_kill"] = {
+            k: _cpu_seconds(pid) for k, pid in servers.items()}
+
+        leases.join()
+        # takeover: SIGKILL core 1; core 0 claims both after the TTL
+        t_kill = time.time()
+        fleet.procs[1].kill()
+        fleet.procs[1].wait(timeout=60)
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while owner(0) != addr[0] or owner(1) != addr[0]:
+            if time.monotonic() > deadline:
+                fail(f"sharded: no takeover ({table.read()['parts']})")
+            time.sleep(0.02)
+        t_claimed = time.time()
+        for k in range(2):
+            epochs[k].append(epoch(k))
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while not [b for a, b in probe.samples if b > t_claimed]:
+            if time.monotonic() > deadline or probe.error:
+                fail(f"sharded: the probe never acked after the takeover "
+                     f"({probe.error})")
+            time.sleep(0.01)
+        first_ack = min(b for a, b in probe.samples if b > t_claimed)
+        probe.join()
+        try:
+            NetworkDocumentServiceFactory(
+                "127.0.0.1", fleet.core_ports[1]).create_document_service(
+                "bench", owned[1][0]).connect_to_delta_stream()
+            fail("sharded: the killed core still answers")
+        except (OSError, ConnectionError):
+            pass
+        row["takeover"] = {"kill_to_claim_s": t_claimed - t_kill,
+                           "kill_to_first_ack_s": first_ack - t_kill}
+
+        # the tail: every container writes through the new owner
+        t0 = time.perf_counter()
+        for i, s in enumerate(strings):
+            for j in range(SHARDED_TAIL_OPS):
+                s.insert_text(len(s.get_text()), f"t{j}")
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while any(c.runtime.pending.count for c in conts):
+            if time.monotonic() > deadline:
+                fail("sharded: the containers' tail was not acked")
+            time.sleep(0.01)
+        last_ack = time.time()
+        row["tail_seconds"] = time.perf_counter() - t0
+        texts = {d: s.get_text() for d, s in zip(cont_docs, strings)}
+        for c in conts:
+            c.close()  # their leaves are the logs' last records
+        conts = []
+        time.sleep(0.5)
+        for k in range(2):
+            if not epochs[k] == sorted(set(epochs[k])):
+                fail(f"sharded: partition {k}'s epochs {epochs[k]} do not "
+                     "rise at every ownership change")
+        row["epochs"] = epochs
+
+        # every doc's applied record at its last seq, per stage
+        replay = {k: _replay_log(os.path.join(shard, f"log-{k}"), owned[k])
+                  for k in range(2)}
+        row["invariants"] = {str(k): {"observed": replay[k]["observed"],
+                                      "redelivered": replay[k]["redelivered"]}
+                             for k in range(2)}
+        lag = []
+        for k in range(2):
+            last = replay[k]["last"]
+            deadline = time.monotonic() + CHILD_TIMEOUT_S
+            while True:
+                newest = stages[k].poll()
+                if all(newest.get(d, -1) >= s for d, s in last.items()):
+                    break
+                if time.monotonic() > deadline:
+                    late = [d for d, s in last.items()
+                            if newest.get(d, -1) < s]
+                    fail(f"sharded: stage {k}'s applied records lag on "
+                         f"{len(late)} docs (first {late[0]})")
+                time.sleep(0.01)
+            lag.append(time.time() - last_ack)
+        row["catch_up_lag_seconds"] = lag
+        row["cpu_seconds_total"] = {
+            **{k: _cpu_seconds(pid) for k, pid in servers.items()
+               if k != "core1"},
+            "core1": row["cpu_seconds_before_kill"]["core1"]}
+
+        # each stage's farm: a CPU applier over its whole log, the texts
+        fleet.stop()
+        t0 = time.perf_counter()
+        escalations = 0
+        for k in range(2):
+            stages[k].kill(signal.SIGTERM)
+            farm = load_applier_checkpoint(
+                os.path.join(root, f"stage{k}", "applier"), device=device)
+            escalations += farm.host_escalations + len(farm._host_docs)
+            ref = ApplierStage(os.path.join(shard, f"log-{k}"),
+                               os.path.join(root, f"cpu{k}"),
+                               max_docs=SERVICE_GEO["max_docs"],
+                               max_slots=SERVICE_GEO["max_slots"],
+                               device="cpu")
+            while ref.run_once():
+                pass
+            bad = [d for d in owned[k] if ref.applier.get_text("bench", d)
+                   != farm.get_text("bench", d)]
+            ref.shared.close()
+            ref.state.close()
+            if bad:
+                fail(f"sharded: {len(bad)} docs of stage {k}'s farm differ "
+                     f"from the CPU applier (first {bad[0]})")
+            wrong = [d for d in owned[k] if d in texts
+                     and farm.get_text("bench", d) != texts[d]]
+            if wrong:
+                fail(f"sharded: stage {k}'s farm reads another text than "
+                     f"the writer for {len(wrong)} docs (first {wrong[0]})")
+        if escalations:
+            fail(f"sharded: {escalations} escalations")
+        row["farm_check_seconds"] = time.perf_counter() - t0
+        row.update(escalations=0, farms_match_cpu=True, stages_at_tail=True,
+                   no_gap_no_duplicate=True, epochs_rise=True,
+                   ex_owner_refuses=True, dead_core_refuses=True)
+    except BaseException:
+        _sharded_postmortem(shard, row, err_path)
+        raise
+    finally:
+        for c in conts:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — tearing down
+                pass
+        fleet.stop()
+        for st in stages:
+            if st.proc.poll() is None:
+                st.kill()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    shutil.rmtree(root, ignore_errors=True)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    row["card"] = power
+    emit(row)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -2817,6 +3371,7 @@ def main() -> None:
     launches += timed(phase_replay, power)
     launches += timed(phase_network, power)
     launches += timed(phase_storage, power)
+    timed(phase_sharded, power)
     launches += timed(phase_mesh, power)
     timed(phase_long_doc, power)
     emit({"phase": "seconds", **seconds})

@@ -3,9 +3,10 @@
 JAX counterpart: ``fluidframework_tpu/chaos``. The port carries the fault
 plane, the invariant monitor, the seam installers (without the socket
 transport's hook, which comes with soak phase B, ROADMAP A8) and soak
-phase A with its ``DeviceStage`` on the card. Soak phase B and the other
-campaigns (migrate, noisy, rebalance, coldstart, multihost) are not
-ported yet (ROADMAP A8, A10).
+phase A with its ``DeviceStage`` on the card, and the sharded core's
+campaigns ``migrate`` and ``rebalance``. Soak phase B and the campaigns
+``noisy``, ``coldstart`` and ``multihost`` are not ported yet (ROADMAP
+A8, A10).
 
 The durability claims the service makes (ARCHITECTURE.md "Durability &
 recovery") are exercised mechanically here, the way fluidlint exercises

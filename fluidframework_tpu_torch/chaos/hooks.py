@@ -3,8 +3,8 @@
 JAX counterpart: ``fluidframework_tpu/chaos/hooks.py``; the port's copy,
 imports rebased to this package, without the socket transport's frame
 hook (``transports=True``) and the front end's snapshot seam, which
-come with soak phase B (ROADMAP A8), and without the sharded core's
-partitions (A10).
+come with soak phase B (ROADMAP A8). The sharded core's partitions
+(``partitions=``) arm as in the JAX package.
 
 Every seam is a duck-typed ``fault_plane`` attribute (``None`` when
 disarmed — one predictable branch on the hot path). The service never
@@ -27,15 +27,16 @@ from .plane import FaultPlane
 
 
 def install(plane: FaultPlane, *, server=None, appliers: Iterable = (),
-            stages: Iterable = (),
+            stages: Iterable = (), partitions: Iterable = (),
             summarizers: Iterable = ()) -> Callable[[], None]:
     """Arm ``plane`` at the requested seams; returns an uninstaller.
 
     - ``server``: a LocalServer — arms its ordered log (append faults)
       and, class-wide, the broadcaster fan-out and the history plane
       (both are built lazily, so the hook must be on the class).
-    - ``appliers`` / ``stages``: ``GpuDocumentApplier`` and
-      ``stage_runner`` stage instances to arm.
+    - ``appliers`` / ``stages`` / ``partitions``: ``GpuDocumentApplier``,
+      ``stage_runner`` stage and ``partitions.Partition`` instances to
+      arm.
     - ``summarizers``: ServiceSummarizer instances — arms the
       mid-upload crash window (``snapshot.upload``).
     """
@@ -60,6 +61,8 @@ def install(plane: FaultPlane, *, server=None, appliers: Iterable = (),
         _set(applier, "fault_plane", plane)
     for stage in stages:
         _set(stage, "fault_plane", plane)
+    for part in partitions:
+        _set(part, "fault_plane", plane)
     for summ in summarizers:
         _set(summ, "fault_plane", plane)
 

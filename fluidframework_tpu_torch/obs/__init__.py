@@ -30,6 +30,7 @@ from .metrics import (  # noqa: F401
     get_registry,
     parse_prometheus,
     reset_registry,
+    sum_counter_snapshots,
     tier_counters,
     tier_snapshot,
 )

@@ -342,6 +342,25 @@ class MetricsRegistry:
                        if all(kv in key for kv in want)]
         return sum(ws.sum(now, window_s) for ws in matched)
 
+    def window_sums_by(self, name: str, label: str,
+                       now: Optional[float] = None,
+                       window_s: Optional[float] = None
+                       ) -> dict[str, float]:
+        """``{label value: exact windowed sum}`` grouped over one label
+        key in a single registry pass — the whole per-partition heat
+        table (``label="part"``) without one lock round per
+        partition."""
+        with self._lock:
+            table = self._windows.get(name, {})
+            matched = [(dict(key).get(label), ws)
+                       for key, ws in table.items()]
+        out: dict[str, float] = {}
+        for lv, ws in matched:
+            if lv is None:
+                continue
+            out[lv] = out.get(lv, 0.0) + ws.sum(now, window_s)
+        return out
+
     def window_history(self, name: Optional[str] = None,
                        now: Optional[float] = None, **labels) -> dict:
         """Retained history of every windowed series (or just
@@ -512,6 +531,23 @@ def tier_snapshot(tier: str) -> dict:
     counts, _ = get_registry()._tier_snapshot()
     key = (("tier", tier),)
     return {name: v for (name, k), v in counts.items() if k == key}
+
+
+def sum_counter_snapshots(snaps) -> dict:
+    """Sum same-named counters across per-process snapshot dicts.
+
+    ``tier_snapshot`` covers exactly ONE process's registry; a sharded
+    deployment runs one core per OS process, so a fleet total (the
+    rebalancer's and the operator's view of ``placement.rebalance.*``)
+    must sum the per-core snapshots fetched over their admin doors
+    (``admin_tier_snapshot``). This is the pure summing half; the RPC
+    fan-out lives in service/rebalancer.py.
+    """
+    out: dict = {}
+    for snap in snaps:
+        for name, v in snap.items():
+            out[name] = out.get(name, 0) + v
+    return out
 
 
 def parse_prometheus(text: str) -> dict:

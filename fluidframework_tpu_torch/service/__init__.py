@@ -11,7 +11,12 @@ as processes of their own that tail it, checkpointing as they go.
 the farm (``summary_trees`` and ``LocalServer.storage`` store it).
 ``front_end.NetworkFrontEnd`` serves the pipeline over TCP, directly or
 through relay ``gateway.Gateway`` processes (native by default), and
-``load_async`` drives it with socket clients.
+``load_async`` drives it with socket clients. The sharded ordering core
+splits docs into partitions across several front ends: ``placement``
+leases and the ``placement_plane`` epoch table route each partition to
+one ``front_end.ShardHost``, which migrates it live or takes it over
+when its owner dies; ``rebalancer`` moves hot partitions, and
+``topology`` starts a whole fleet from one spec.
 """
 
 __all__ = ["Gateway", "NetworkFrontEnd"]

@@ -2,8 +2,9 @@
 
 JAX counterpart: ``fluidframework_tpu/service/admission.py``; the port's
 copy, imports rebased to this package. The token buckets' rates come from
-a tenant registry and the burn signal from an SLO engine; both wait for
-ROADMAP A10, so the port's front end constructs no controller yet.
+a tenant registry (ported) and the burn signal from an SLO engine, which
+waits for ROADMAP A10 (``obs/slo.py``), so the port's front end
+constructs no controller yet.
 
 Ref: Routerlicious gets overload protection for free from Kafka
 backpressure plus Alfred's per-tenant throttler

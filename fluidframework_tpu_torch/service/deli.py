@@ -219,11 +219,27 @@ class DeliLambda:
 
     # ------------------------------------------------------------------ api
 
+    #: placement fence (placement_plane): a callable returning the CURRENT
+    #: routing-table epoch when this partition's claim is stale (another
+    #: core claimed a newer epoch), else None. Checked on EVERY record —
+    #: a fenced deli must never sequence, even with buffered raw records.
+    epoch_fence = None
+
     def handler(self, message: QueuedMessage) -> None:
-        # idempotent replay after restart (ref: deli/lambda.ts:173). The
-        # JAX package's placement epoch fence is not ported (ROADMAP A10).
+        # idempotent replay after restart (ref: deli/lambda.ts:173)
         if message.offset <= self.log_offset:
             return
+        fence = self.epoch_fence
+        if fence is not None:
+            current = fence()
+            if current is not None:
+                # stale-epoch admission refusal: consume the offset (the
+                # record must not replay into a double-sequence later)
+                # and nack with the current epoch so the client rebases
+                # against the new owner. Counted under placement.*.
+                self.log_offset = message.offset
+                self._refuse_stale_epoch(message.value, current)
+                return
         self.log_offset = message.offset
         raw = message.value
         if type(raw) is RawBoxcar:
@@ -293,6 +309,31 @@ class DeliLambda:
 
     def close(self) -> None:
         pass
+
+    def _refuse_stale_epoch(self, raw, current_epoch: int) -> None:
+        """Placement fence tripped: this core's claim on the partition is
+        older than the routing table's. Refuse WITHOUT sequencing — nack
+        client records with the current epoch (the redirect hint), drop
+        system records (the new owner re-derives joins/leaves)."""
+        from .placement_plane import placement_counters
+
+        placement_counters().inc("placement.epoch.stale_nacks")
+        msg = (f"stale placement epoch: partition now at epoch "
+               f"{current_epoch}; reconnect")
+        if type(raw) is RawBoxcar:
+            for op in raw.ops:
+                self._nack(raw.client_id, Nack(
+                    operation=op, sequence_number=self.sequence_number,
+                    code=410, type=NackErrorType.BAD_REQUEST, message=msg))
+        elif type(raw) is ArrayBoxcar:
+            self._nack(raw.client_id, Nack(
+                operation=None, sequence_number=self.sequence_number,
+                code=410, type=NackErrorType.BAD_REQUEST, message=msg))
+        elif getattr(raw, "client_id", None) is not None:
+            self._nack(raw.client_id, Nack(
+                operation=raw.operation,
+                sequence_number=self.sequence_number,
+                code=410, type=NackErrorType.BAD_REQUEST, message=msg))
 
     def _nack_logged(self, send_nack):
         def nack(client_id, n):

@@ -1,16 +1,17 @@
 """NetworkFrontEnd: the socket front door (the Alfred analog).
 
 JAX counterpart: ``fluidframework_tpu/service/front_end.py``; the port's
-copy of the single-pipeline core, imports rebased to this package: the
-frame protocol and every client door, the gateway backbone, the admin
-status/counter RPCs, the stage backchannel, the service-summarizer loop,
-``start_background``/``serve_forever`` and ``main()`` with the storage
-tier's ``--storage-dir``, ``--storage-server`` and ``--external-scribe``.
-What the port does not carry yet raises ``NotImplementedError`` naming its
-ROADMAP item: the tenancy, overload, placement and health planes
-(``--tenant``, ``--tenant-rate``, ``--slo``, ``--probe``, ``--shard-dir``,
-``--topology``, ``--rebalance``, the sharded ``ShardHost``, A10). The
-admin doors of the sharded core answer as a single-pipeline core does.
+copy, imports rebased to this package: the frame protocol and every
+client door, the gateway backbone, the admin RPCs, the stage backchannel,
+the service-summarizer loop, tenant tokens and the tenant registry, the
+sharded core (``ShardHost``, ``NetworkFrontEnd(shard_host=)``, the
+migration seal and the placement admin doors, partition heat, the lease
+poll, lazy boot admission and the rebalancer),
+``start_background``/``serve_forever`` and ``main()``. What the port does
+not carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
+overload and health plane (``--tenant-rate``, ``--slo``, ``--no-shed``,
+``--probe``, ``enable_admission``, ``attach_slo``, ``enable_health`` and
+fleet ``admin_health``, A10).
 
 Ref: lambdas/src/alfred/index.ts:112-405 — the reference's front end is a
 socket.io server doing the connect_document handshake (:159,:285),
@@ -70,11 +71,11 @@ import functools
 import json
 import threading
 import time
-from typing import Optional
+from typing import Any, Optional
 
 from ..obs import get_journal, get_recorder, get_registry, tier_counters
 from ..obs.probe import CANARY_TENANT
-from ..utils.affinity import loop_only
+from ..utils.affinity import loop_only, ticker_thread
 from ..protocol import binwire
 from ..protocol.messages import Nack, NackErrorType, Signal, TraceHop
 from ..protocol.serialization import message_from_dict, message_to_dict
@@ -95,6 +96,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"front end {what} is not ported to fluidframework_tpu_torch yet "
         f"(ROADMAP {item})")
+# backoff hint on submits bounced off a sealed (mid-migration)
+# partition: long enough for checkpoint+handoff of a hot partition,
+# short enough to keep the client-visible migration blip small
+MIGRATION_RETRY_S = 0.05
 
 
 def _encode_frame(obj: dict) -> bytes:
@@ -654,9 +659,16 @@ class _ClientSession:
             get_registry().inc("net.ingress.ops", len(ops),
                                tenant=conn.tenant_id)
         if getattr(conn.server, "sealed", False):
-            # partition mid-migration: the sharded core's bounce on the
-            # shed-retry lane (the port's LocalServer is never sealed)
-            raise _not_ported("migration seal", "A10")
+            # partition mid-migration: bounce on the shed-retry lane
+            # (echoed op + retry_after_ms — the driver parks and
+            # resubmits in cseq order against the new owner)
+            from .placement_plane import placement_counters
+
+            placement_counters().inc("placement.submits.redirected", len(ops))
+            self._push_shed_nacks(
+                ops, MIGRATION_RETRY_S, sid,
+                message="partition migrating: resubmit shortly")
+            return []
         adm = self.front.admission
         if adm is not None and not canary:
             retry_s = adm.check(conn, len(ops),
@@ -721,8 +733,15 @@ class _ClientSession:
                 get_registry().inc("net.ingress.ops", n,
                                    tenant=conn.tenant_id)
             if getattr(conn.server, "sealed", False):
-                # mid-migration bounce (sharded core only)
-                raise _not_ported("migration seal", "A10")
+                # mid-migration bounce, cold path: materialize the ops
+                # so the shed nacks are byte-identical to the rec door's
+                from .placement_plane import placement_counters
+
+                placement_counters().inc("placement.submits.redirected", n)
+                self._push_shed_nacks(
+                    binwire.cols_to_ops(sc), MIGRATION_RETRY_S, sid,
+                    message="partition migrating: resubmit shortly")
+                return
             adm = front.admission
             if adm is not None and not canary:
                 retry_s = adm.check(conn, n, int(sc.cseq[0]))
@@ -780,7 +799,9 @@ class _ClientSession:
             # from the token exactly as the direct door does, so a
             # read-only token gets a read-mode connection, not a refusal.
             if server.tenants is not None:
-                raise _not_ported("tenant token validation", "A10")
+                from .tenants import SCOPE_READ
+                server.tenants.validate(frame.get("token"), tenant, doc,
+                                        required_scope=SCOPE_READ)
             topic = BroadcasterLambda.topic(tenant, doc)
             self._fbinary = bool(frame.get("bin"))
             # the gateway's topic subscription must exist BEFORE the join
@@ -935,8 +956,13 @@ class _ClientSession:
         and storage reads need doc:read, blob/summary writes need
         doc:write — otherwise a tokenless connection could read a secured
         doc's whole op stream or write into its storage."""
-        if self.front.server.tenants is not None:
-            raise _not_ported("tenant token validation", "A10")
+        tenants = self.front.server.tenants
+        if tenants is None:
+            return
+        from .tenants import SCOPE_READ, SCOPE_WRITE
+
+        tenants.validate(frame.get("token"), frame["tenant"], frame["doc"],
+                         required_scope=SCOPE_WRITE if write else SCOPE_READ)
 
     def _handle_snapshot_cols(self, frame: dict, rid) -> None:
         """Encode-once snapshot serving: push the latest snapcols
@@ -1057,6 +1083,25 @@ class _ClientSession:
                                     batch=frame.get("batch", 64))
             self.push("history", {"rid": rid, "integrate": res})
 
+    def _reply_offloop(self, rid, work, reply) -> None:
+        """Run ``work()`` on the default executor and push
+        ``reply(result)`` from the future's done-callback, which asyncio
+        runs back on the loop thread — so a slow fan-out (peer socket
+        dials with multi-second timeouts) never stalls the event loop
+        the way a synchronous call from ``handle()`` would. Failures get
+        the same error frame the dispatcher's wrapper would have sent."""
+        fut = self._loop.run_in_executor(None, work)
+
+        def _done(f) -> None:
+            try:
+                reply(f.result())
+            except Exception as e:  # noqa: BLE001 — report, don't kill the loop
+                self.front.logger.error("frame_error", frame_type="admin",
+                                        message=str(e))
+                self.push("error", {"rid": rid, "message": str(e)})
+
+        fut.add_done_callback(_done)
+
     @loop_only("core")
     def _handle_admin(self, t: str, frame: dict, rid) -> None:
         """Management surface (ref: server/admin + riddler's
@@ -1160,18 +1205,116 @@ class _ClientSession:
                                version=version, forced=True)
             self.push("admin", {"rid": rid, "version": version})
         elif t == "admin_tenant_add":
-            # the tenant registry (riddler role) comes with ROADMAP A10
-            raise _not_ported("tenant registry", "A10")
+            if tenants is None:
+                from .tenants import TenantManager
+
+                tenants = front.server.tenants = TenantManager()
+                for server in front._all_servers():
+                    server.tenants = tenants
+            tenants.register(frame["id"], frame["tenant_secret"])
+            if front.shard_host is not None:
+                # deployment-wide: the other cores reload the registry
+                # file on their next lease poll
+                front.shard_host.save_tenants()
+            self.push("admin", {"rid": rid, "ok": True})
         elif t == "admin_tenant_remove":
-            self.push("admin", {"rid": rid, "ok": False})
-        elif t in ("admin_placement", "admin_core_heat"):
-            # read-only views of the sharded core's routing plane: a
-            # single-pipeline core has none
-            key = "placement" if t == "admin_placement" else "heat"
-            self.push("admin", {"rid": rid, key: None})
-        elif t in ("admin_migrate_doc", "admin_adopt_partition",
-                   "admin_placement_drain", "admin_migrate_part"):
-            raise ValueError("not a sharded core")
+            ok = tenants.remove(frame["id"]) if tenants else False
+            if ok and front.shard_host is not None:
+                front.shard_host.save_tenants()
+            self.push("admin", {"rid": rid, "ok": ok})
+        elif t == "admin_placement":
+            # read-only: this core's view of the routing plane — the
+            # epoch table, its own claims, the lease liveness view, and
+            # the placement.* counter snapshot (net_smoke's gate source)
+            sh = front.shard_host
+            if sh is None:
+                self.push("admin", {"rid": rid, "placement": None})
+                return
+            rec = sh.table.read()
+            from ..obs import tier_snapshot
+
+            placement = {
+                "owner": sh.owner_id,
+                "address": sh.address,
+                "epoch": rec["epoch"],
+                "parts": rec["parts"],
+                "cores": rec.get("cores", {}),
+                "owned": sorted(sh.servers),
+                "leases": sh.placement.table(),
+                "counters": None,
+            }
+            if frame.get("fleet"):
+                # fleet totals: this core's snapshot summed with every
+                # reachable peer's (admin_tier_snapshot fan-out) — the
+                # operator sees migrations the WHOLE loop issued, not
+                # just the local lane's. Each peer is a synchronous
+                # socket dial with a multi-second timeout, so the
+                # fan-out runs off-loop and the reply is pushed from
+                # the done-callback.
+                self._reply_offloop(
+                    rid, lambda: front._fleet_placement_counters(rec),
+                    lambda counters: self.push("admin", {
+                        "rid": rid,
+                        "placement": dict(placement,
+                                          counters=counters)}))
+                return
+            snap = tier_snapshot("placement")
+            placement["counters"] = {name: v for name, v in snap.items()
+                                     if name.startswith("placement.")}
+            self.push("admin", {"rid": rid, "placement": placement})
+        elif t == "admin_migrate_doc":
+            # live migration trigger: move the doc's PARTITION to the
+            # named core. Synchronous ON the event loop by design — the
+            # single-threaded seal→fence→handoff cannot interleave with
+            # a submit frame, which is the no-two-writers proof for the
+            # in-process window (deli's epoch fence covers the rest).
+            # Not in the no-secret mutating set (like admin_summarize):
+            # it moves state the deployment already holds, creates none.
+            sh = front.shard_host
+            if sh is None:
+                raise ValueError("not a sharded core")
+            from .stage_runner import doc_partition
+
+            tenant, doc = frame["tenant"], frame["doc"]
+            k = doc_partition(tenant, doc, sh.n)
+            op_id = sh.journal.emit(
+                "operator.command", command=t, tenant=tenant, doc=doc,
+                part=k, target=frame["target"])
+            result = front.migration_engine.migrate(
+                k, frame["target"], on_flip=front._on_migration_flip,
+                cause=op_id)
+            self.push("admin", {"rid": rid, **result})
+        elif t == "admin_adopt_partition":
+            # core→core handoff target side (MigrationEngine._rpc_adopt)
+            sh = front.shard_host
+            if sh is None:
+                raise ValueError("not a sharded core")
+            result = front.migration_engine.adopt(
+                int(frame["k"]), frame["from_owner"],
+                cause=frame.get("journal_cause"),
+                log_blob=frame.get("log_blob"))
+            self.push("admin", {"rid": rid, **result})
+        elif t == "admin_core_heat":
+            # read-only: this core's windowed per-partition heat — the
+            # rebalancer's fleet scrape AND the `admin placement heat`
+            # table both read this; a failed dial here marks the core
+            # unreachable (never a migration target)
+            sh = front.shard_host
+            if sh is None:
+                self.push("admin", {"rid": rid, "heat": None})
+                return
+            from .rebalancer import HEAT_WINDOW_S, read_local_heat
+
+            heat = read_local_heat(list(sh.servers))
+            self.push("admin", {"rid": rid, "heat": {
+                "owner": sh.owner_id,
+                "addr": sh.address,
+                "draining": bool(getattr(sh, "draining", False)),
+                "window_s": HEAT_WINDOW_S,
+                "parts": {str(k): {"ops": round(h.ops, 3),
+                                   "bytes": round(h.bytes, 3)}
+                          for k, h in sorted(heat.items())},
+            }})
         elif t == "admin_tier_snapshot":
             # read-only: one tier's per-process counter sums — the
             # fleet-aggregation building block (obs.sum_counter_snapshots
@@ -1182,7 +1325,60 @@ class _ClientSession:
                 "rid": rid,
                 "counters": tier_snapshot(str(frame["tier"]))})
         elif t == "admin_rebalance_status":
-            self.push("admin", {"rid": rid, "rebalance": {"armed": False}})
+            # read-only: the loop's own account of itself (armed, last
+            # plan, suppressions, flap count) + optional fleet counters
+            reb = front.rebalancer
+            status = (reb.status() if reb is not None
+                      else {"armed": False})
+            if frame.get("fleet") and front.shard_host is not None:
+                # same off-loop treatment as admin_placement: the peer
+                # fan-out must not stall the loop
+                table_rec = front.shard_host.table.read()
+                self._reply_offloop(
+                    rid,
+                    lambda: front._fleet_placement_counters(table_rec),
+                    lambda counters: self.push("admin", {
+                        "rid": rid,
+                        "rebalance": dict(status,
+                                          fleet_counters=counters)}))
+                return
+            self.push("admin", {"rid": rid, "rebalance": status})
+        elif t == "admin_placement_drain":
+            # mark a member draining: every rebalancer tick on that core
+            # now evacuates its partitions (dwell/threshold exempt) until
+            # it owns nothing and flips itself to drained
+            sh = front.shard_host
+            if sh is None:
+                raise ValueError("not a sharded core")
+            from .placement_plane import CORE_DRAINING
+
+            op_id = sh.journal.emit("operator.command", command=t,
+                                    owner=frame["owner"])
+            ok = sh.table.set_core_state(frame["owner"], CORE_DRAINING,
+                                         cause=op_id)
+            if not ok:
+                raise ValueError(
+                    f"unknown core {frame['owner']!r} (not registered)")
+            self.push("admin", {"rid": rid, "ok": True,
+                                "owner": frame["owner"]})
+        elif t == "admin_migrate_part":
+            # partition-addressed migration trigger (admin_migrate_doc's
+            # sibling): the rebalancer daemon actuates through a loopback
+            # RPC to THIS handler so the seal→fence→handoff runs on the
+            # event loop — same single-threaded no-two-writers proof as
+            # the operator door
+            sh = front.shard_host
+            if sh is None:
+                raise ValueError("not a sharded core")
+            # a rebalancer loopback carries its actuation entry id as
+            # journal_cause; a bare operator call roots its own chain
+            cause = frame.get("journal_cause") or sh.journal.emit(
+                "operator.command", command=t, part=int(frame["k"]),
+                target=frame["target"])
+            result = front.migration_engine.migrate(
+                int(frame["k"]), frame["target"],
+                on_flip=front._on_migration_flip, cause=cause)
+            self.push("admin", {"rid": rid, **result})
         elif t == "admin_journal":
             # read-only: this core's audit-journal tail (the `admin
             # journal` CLI and the fleet merge both read this); a
@@ -1219,15 +1415,21 @@ class _ClientSession:
             boot_counts = {k: v
                            for k, v in tier_snapshot("frontend").items()
                            if k.startswith(("boot.part.", "topology."))}
-            # one partition, booted eagerly: lazy boot and its executor
-            # come with the sharded core (ROADMAP A10)
-            parts = [{"part": None,
-                      "docs_booted": len(front.server._orderers),
-                      "docs_pending": 0}]
+            sh = front.shard_host
+            if sh is not None:
+                parts = [s.boot_status()
+                         for _, s in sorted(sh.servers.items())]
+                rehydrator = sh.rehydrator
+                owner = sh.owner_id
+            else:
+                parts = [front.server.boot_status()]
+                rehydrator = front.server.rehydrator
+                owner = None
             self.push("admin", {"rid": rid, "boot": {
-                "owner": None,
+                "owner": owner,
                 "parts": parts,
-                "executor": None,
+                "executor": (rehydrator.status()
+                             if rehydrator is not None else None),
                 "counters": boot_counts}})
         elif t == "admin_flight_dump":
             # operator door onto the flight recorder: dump the rings NOW
@@ -1247,8 +1449,10 @@ class _ClientSession:
             # unarmed core answers verdict="unknown", as the JAX core does
             if frame.get("fleet"):
                 raise _not_ported("fleet health", "A10")
+            owner = (front.shard_host.owner_id
+                     if front.shard_host is not None else "")
             self.push("admin", {"rid": rid, "health": {
-                "core": "", "verdict": "unknown", "components": {},
+                "core": owner, "verdict": "unknown", "components": {},
                 "armed": False}})
 
     def _unsubscribe_ftopic(self, topic: str) -> None:
@@ -1259,6 +1463,31 @@ class _ClientSession:
             pubsub.unsubscribe(topic, on_batch)
             pubsub.unsubscribe(sig_topic, on_signal)
             self.front.presence.unsubscribe(topic, on_presence)
+
+    def drop_server(self, server) -> None:
+        """Tear down everything this session holds on a revoked
+        partition server (lease lost): direct connections close the
+        socket (the client auto-reconnects to the takeover owner);
+        gateway-muxed sids get an ``fdropped`` so the gateway closes
+        just THAT client, not the whole backbone."""
+        if self.conn is not None and self.conn.server is server:
+            self.closed()
+            try:
+                self.writer.close()
+            except Exception:
+                pass
+            return
+        for sid in [s for s, c in self._fsessions.items()
+                    if c.server is server]:
+            conn = self._fsessions.pop(sid)
+            conn.disconnect()
+            topic = self._fsession_topics.pop(sid, None)
+            if topic is not None:
+                self._ftopic_refs[topic] -= 1
+                if self._ftopic_refs[topic] == 0:
+                    del self._ftopic_refs[topic]
+                    self._unsubscribe_ftopic(topic)
+            self.push("fdropped", {"sid": sid})
 
     def closed(self) -> None:
         if self.conn is not None:
@@ -1278,6 +1507,254 @@ class _ClientSession:
         self._presence.clear()
 
 
+class ShardHost:
+    """A core process's claim over doc partitions.
+
+    Ref: memory-orderer/src/reservationManager.ts:21 + remoteNode.ts:92 —
+    the reference's multi-node orderer leases documents and routes
+    connections to the owner. Here the lease unit is the doc partition;
+    partition ``k``'s pipeline is durable in ``<shard_dir>/log-<k>`` and
+    whoever holds the lease resumes it from its checkpoints (the same
+    restart path a single-core kill -9 recovery uses). ``prefer`` seeds
+    the initial placement: non-preferred partitions are only claimed
+    after the lease TTL grace (i.e. takeover of a dead peer).
+    """
+
+    def __init__(self, shard_dir: str, n: int, prefer=(),
+                 storage_server=None, ttl_s: float = None,
+                 table_client=None, host_id: Optional[str] = None,
+                 claim_policy: Optional[str] = None):
+        import os
+        import uuid
+
+        from .placement import DEFAULT_TTL_S
+
+        self.shard_dir = shard_dir
+        self.n = n
+        self.prefer = set(prefer)
+        self.storage_server = storage_server
+        self.owner_id = uuid.uuid4().hex[:8]
+        self.address: Optional[str] = None  # set once the port is bound
+        # placement plane behind the TableClient split (table_client.py):
+        # local (the raw flock-backed PlacementDir + EpochTable — zero
+        # indirection) unless a remote client was injected, in which case
+        # every lease/table op is an RPC into the placement host's table
+        # door and the flock runs THERE. Either way ``self.placement`` /
+        # ``self.table`` keep their historical shapes, so the fencing
+        # layers below are implementation-blind.
+        if table_client is None:
+            from .table_client import LocalTableClient
+
+            table_client = LocalTableClient(
+                shard_dir, n,
+                ttl_s if ttl_s is not None else DEFAULT_TTL_S)
+        self.table_client = table_client
+        self.placement = table_client.leases
+        self.table = table_client.table
+        # multi-host fleets: which host group this core runs in (None =
+        # classic single-host). Advertised in the table's cores rows for
+        # the rebalancer's locality tiebreak and gateway accounting.
+        self.host_id = host_id
+        # "prefer" pins this core to its preferred partitions — it never
+        # claims outside them, not even stale leases. Multi-host fleets
+        # without log replication run this way: a partition's durable
+        # log lives in ONE host group's dir, so a cross-host takeover
+        # (unlike a cross-host MIGRATION, which ships the log) could not
+        # resume it. claim_policy=None/"any" is the historical behavior.
+        self.claim_policy = claim_policy or "any"
+        # epoch under which this host claimed each owned partition vs
+        # the latest table epoch seen for it (refreshed once per poll):
+        # table newer than claim ⇒ someone adopted it ⇒ deli's epoch
+        # fence refuses with the current epoch (see _make_server)
+        self.claim_epochs: dict[int, int] = {}
+        self.table_epochs: dict[int, int] = {}
+        # partitions mid-migration: poll must not re-claim them
+        self.migrating: set[int] = set()
+        # shared secret for core→core adoption RPCs (uniform deployment)
+        self.admin_secret: Optional[str] = None
+        self.servers: dict[int, LocalServer] = {}
+        # ONE TenantManager shared by every partition server of this
+        # process (including ones claimed later by takeover), kept in
+        # sync with the DEPLOYMENT-WIDE registry file
+        # <shard_dir>/tenants.json: admin tenant-add on any core secures
+        # every core — other processes pick the file up on their next
+        # lease poll, and a core started later loads it at boot. A
+        # late-claimed or freshly-started tenant-less server would
+        # otherwise silently accept unsigned connects (riddler's
+        # tenantManager role, but file-backed like the leases).
+        from .tenants import TenantManager
+
+        self.tenants = TenantManager()
+        self._tenants_path = os.path.join(shard_dir, "tenants.json")
+        self._tenants_mtime = None
+        self._reload_tenants()
+        self._start_t = None
+        # monotonic time of the last CONFIRMED lease per partition (the
+        # fencing clock — see _make_server)
+        self.hb_times: dict[int, float] = {}
+        # fired as on_drop(k, server) AFTER a lost partition is revoked —
+        # the front end closes the partition's live sessions so clients
+        # reconnect to the takeover owner
+        self.on_drop = None
+        # control-plane audit journal (obs/journal.py): the process
+        # singleton, disarmed (free) unless main() armed it — lease
+        # lifecycle events land here next to the epoch bumps the table
+        # itself records
+        self.journal = get_journal()
+        # elastic membership: set from the epoch table's cores section
+        # each poll — a draining host claims nothing (the rebalancer
+        # evacuates what it still owns)
+        self.draining = False
+        # fleet cold start (service/rehydrate.py): claiming a partition
+        # builds NO doc pipelines; first routes boot O(snapshot+tail).
+        # The rehydrator — when the front end arms one — bounds a boot
+        # storm by parking excess first-routes on the retry lane.
+        self.lazy_boot = True
+        self.rehydrator = None
+        self._cold_boot_noted = False
+
+    def _make_server(self, k: int) -> LocalServer:
+        import os
+        import time
+
+        from .durable_log import DurableLog
+
+        log = DurableLog(os.path.join(self.shard_dir, f"log-{k}"))
+        server = LocalServer(log=log, storage_server=self.storage_server,
+                             tenants=self.tenants)
+        # lease fencing: orders are refused unless the lease was
+        # confirmed within 75% of the TTL — a stalled-and-resumed
+        # process fails this check on its first buffered frame, before
+        # its heartbeat loop has even run (see LocalServer.lease_fresh)
+        margin = self.placement.ttl_s * 0.75
+        server.lease_fresh = (
+            lambda k=k, margin=margin:
+            time.monotonic() - self.hb_times.get(k, 0.0) < margin)
+        # placement epoch fence (deli admission): pure dict compares on
+        # the hot path — the table file is read once per poll
+        server.epoch_fence = (
+            lambda k=k: (self.table_epochs[k]
+                         if (self.table_epochs.get(k, 0)
+                             > self.claim_epochs.get(k, 0))
+                         else None))
+        # which partition this server sequences — the front end's heat
+        # recording labels the windowed series with it
+        server.part_k = k
+        server.lazy_boot = self.lazy_boot
+        server.rehydrator = self.rehydrator
+        if self.lazy_boot:
+            pending = server.scan_boot_pending()
+            if pending and not self._cold_boot_noted:
+                # cold start: docs exist on disk and none are booted —
+                # journal the recovery shape once per process
+                self._cold_boot_noted = True
+                self.journal.emit("core.cold_boot", owner=self.owner_id,
+                                  part=k, docs_pending=pending)
+        return server
+
+    def _reload_tenants(self) -> None:
+        import json
+        import os
+
+        try:
+            mtime = os.stat(self._tenants_path).st_mtime_ns
+        except OSError:
+            return
+        if mtime == self._tenants_mtime:
+            return
+        self._tenants_mtime = mtime
+        try:
+            with open(self._tenants_path) as f:
+                self.tenants.replace_all(json.load(f))
+        except (OSError, ValueError):
+            pass  # mid-replace race: next poll rereads
+
+    def save_tenants(self) -> None:
+        """Persist the registry for the OTHER cores (atomic replace)."""
+        import json
+        import os
+
+        tmp = self._tenants_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.tenants._secrets, f)
+        os.replace(tmp, self._tenants_path)
+        try:
+            self._tenants_mtime = os.stat(
+                self._tenants_path).st_mtime_ns
+        except OSError:
+            pass
+
+    def poll(self) -> None:
+        """Heartbeat owned partitions; claim unowned/stale ones."""
+        import time
+
+        self._reload_tenants()
+        # refresh the epoch-fence view (one mtime-cached file read);
+        # writes are flock-ordered, so this can only move forward
+        self.table_epochs = self.table.part_epochs()
+        if self.address:
+            # membership: advertise this core (no-op when unchanged) and
+            # pick up an operator drain mark — a draining host stops
+            # claiming; the rebalancer evacuates what it still owns
+            self.table.record_core(self.owner_id, self.address,
+                                   host=self.host_id)
+            from .placement_plane import CORE_DRAINED, CORE_DRAINING
+
+            self.draining = self.table.core_state(self.owner_id) in (
+                CORE_DRAINING, CORE_DRAINED)
+        if self._start_t is None:
+            self._start_t = time.monotonic()
+        for k in list(self.servers):
+            if k in self.migrating:
+                continue  # the MigrationEngine owns k's lifecycle now
+            if self.placement.heartbeat(k, self.owner_id):
+                self.hb_times[k] = time.monotonic()
+            else:
+                # lease lost to a takeover: revoke (no further append
+                # can reach the log this process no longer owns), then
+                # let the front end tear down the live sessions. The
+                # lease_fresh fence already refused orders the moment
+                # the confirmation went stale, so there is no
+                # two-writer window even if this heartbeat ran late.
+                server = self.servers.pop(k)
+                self.claim_epochs.pop(k, None)
+                server.revoke()
+                self.journal.emit("lease.takeover", part=k,
+                                  lost_by=self.owner_id)
+                if self.on_drop is not None:
+                    self.on_drop(k, server)
+        in_grace = (time.monotonic() - self._start_t
+                    < self.placement.ttl_s + 0.5)
+        if self.draining:
+            return  # evacuating: never claim, not even takeovers
+        for k in range(self.n):
+            if k in self.servers or k in self.migrating:
+                continue
+            if k not in self.prefer and self.claim_policy == "prefer":
+                continue  # pinned: this core's logs can't serve others
+            if k not in self.prefer and in_grace:
+                continue  # let the preferring core take it first
+            if self.placement.try_claim(k, self.owner_id, self.address):
+                claim_id = self.journal.emit(
+                    "lease.claim", part=k, owner=self.owner_id,
+                    takeover=k not in self.prefer)
+                self.claim_epochs[k] = self.table.record_claim(
+                    k, self.owner_id, self.address or "", cause=claim_id)
+                self.table_epochs[k] = self.claim_epochs[k]
+                self.hb_times[k] = time.monotonic()
+                self.servers[k] = self._make_server(k)
+
+    def release_all(self) -> None:
+        for k in list(self.servers):
+            self.placement.release(k, self.owner_id)
+            rel_id = self.journal.emit("lease.release", part=k,
+                                       owner=self.owner_id)
+            self.table.record_release(k, self.owner_id, cause=rel_id)
+            self.claim_epochs.pop(k, None)
+        self.servers.clear()
+        self.journal.emit("core.stop", owner=self.owner_id)
+
+
 class NetworkFrontEnd:
     """Owns the LocalServer pipeline and serves it over TCP.
 
@@ -1286,17 +1763,28 @@ class NetworkFrontEnd:
     ``serve_forever()`` blocks — the subprocess deployment
     (``python -m fluidframework_tpu_torch.service.front_end``).
 
-    The sharded core (``shard_host``) is not ported (ROADMAP A10).
+    With ``shard_host`` set the process serves only the doc partitions
+    whose leases it holds — ``server_for`` routes each frame to the
+    partition's LocalServer and refuses docs this core doesn't own.
     """
 
     def __init__(self, server: Optional[LocalServer] = None,
                  host: str = "127.0.0.1", port: int = 0,
                  max_message_size: Optional[int] = None,
-                 shard_host=None,
+                 shard_host: Optional[ShardHost] = None,
                  admin_secret: Optional[str] = None):
-        if shard_host is not None:
-            raise _not_ported("sharded core (shard_host)", "A10")
+        self.shard_host = shard_host
         self.admin_secret = admin_secret
+        self.migration_engine = None
+        if shard_host is not None:
+            # config/tenants shell; never serves. Shares the shard
+            # host's deployment-wide tenant registry so the admin
+            # surface and enforcement checks see the same state.
+            server = LocalServer(tenants=shard_host.tenants)
+            from .placement_plane import MigrationEngine
+
+            shard_host.admin_secret = admin_secret
+            self.migration_engine = MigrationEngine(shard_host)
         self.server = server if server is not None else LocalServer()
         self.logger = self.server.logger.child("front_end")
         self.host = host
@@ -1336,7 +1824,8 @@ class NetworkFrontEnd:
         # visibility flushes for external consumers
         self._backchannels: list = []
         self._bg_tasks: list = []  # strong refs; the loop's are weak
-        self._log_flush = hasattr(self.server.log, "flush")
+        self._log_flush = (shard_host is not None
+                           or hasattr(self.server.log, "flush"))
         # (tenant, doc) → applied seq reported by an applier stage
         self.applier_status: dict = {}
         # overload-control loop: the admission gate stays None (one
@@ -1344,7 +1833,12 @@ class NetworkFrontEnd:
         # SLO engine is attached
         self.admission: Optional[AdmissionController] = None
         self.slo_engine = None
-        # live _ClientSessions
+        # self-driving placement: armed by --rebalance (enable_rebalancer
+        # stores the config; _start constructs the daemon once the port
+        # is bound and the shard host registered in the epoch table)
+        self.rebalancer = None
+        self._rebalance_cfg: Optional[dict] = None
+        # live _ClientSessions (lease-loss teardown walks these)
         self._sessions: set = set()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
@@ -1361,19 +1855,65 @@ class NetworkFrontEnd:
 
     def enable_boot_admission(self, boots_per_s: float = 200.0,
                               burst: int = 32) -> "NetworkFrontEnd":
-        raise _not_ported("boot-storm admission (lazy boot)", "A10")
+        """Arm boot-storm admission: one rehydration executor per core
+        shared by every partition server (current AND late-claimed —
+        ShardHost stamps it in _make_server)."""
+        from .rehydrate import RehydrationExecutor
+
+        ex = RehydrationExecutor(boots_per_s, burst)
+        if self.shard_host is not None:
+            self.shard_host.rehydrator = ex
+            for s in self.shard_host.servers.values():
+                s.rehydrator = ex
+        else:
+            self.server.rehydrator = ex
+        return self
 
     def record_heat(self, server, n_ops: int, n_bytes: int) -> None:
-        """Per-partition load accounting (the rebalancer's input).
-        Single-pipeline deployments have no ``part_k`` and record nothing
-        — there is nowhere to rebalance to."""
-        if getattr(server, "part_k", None) is not None:
-            raise _not_ported("partition heat", "A10")
+        """Per-partition load accounting (the rebalancer's input): one
+        windowed observe per admitted boxcar, labeled with the serving
+        partition. Single-pipeline deployments have no ``part_k`` and
+        record nothing — there is nowhere to rebalance to."""
+        k = getattr(server, "part_k", None)
+        if k is None:
+            return
+        from .rebalancer import HEAT_BYTES, HEAT_OPS
+
+        reg = get_registry()
+        reg.observe_windowed(HEAT_OPS, float(n_ops), part=str(k))
+        if n_bytes:
+            reg.observe_windowed(HEAT_BYTES, float(n_bytes), part=str(k))
 
     def enable_rebalancer(self, tick_s: float = 0.5,
                           dwell_s: float = 10.0, budget: int = 2,
                           improvement: float = 0.25) -> "NetworkFrontEnd":
-        raise _not_ported("placement rebalancer", "A10")
+        """Arm the self-driving placement loop (--rebalance). Stored as
+        config here; the daemon itself starts in ``_start`` once the
+        bound address exists (migration targets need it)."""
+        if self.shard_host is None:
+            raise ValueError("--rebalance requires a sharded core")
+        self._rebalance_cfg = {
+            "tick_s": tick_s, "dwell_s": dwell_s,
+            "budget": budget, "improvement": improvement}
+        return self
+
+    @ticker_thread("rebalancer")
+    def _rebalance_actuate(self, k: int, target_addr: str,
+                           cause: Optional[str] = None) -> None:
+        """Actuation seam for the rebalancer's ticker THREAD: a loopback
+        ``admin_migrate_part`` RPC against our own event loop, so the
+        seal→fence→handoff runs exactly where the operator door runs it
+        (single-threaded, no submit frame can interleave). ``cause`` is
+        the rebalance.actuate journal id; it rides the frame so the
+        migration chain roots at the plan, not at the loopback RPC."""
+        from .placement_plane import admin_rpc
+
+        frame = {"t": "admin_migrate_part", "k": k, "target": target_addr}
+        if cause is not None:
+            frame["journal_cause"] = cause
+        if self.admin_secret:
+            frame["secret"] = self.admin_secret
+        admin_rpc(self.host, self.port, frame)
 
     def enable_health(self, probe_tick_s: float = 2.0,
                       tick_s: float = 1.0, critical_ticks: int = 3,
@@ -1382,11 +1922,38 @@ class NetworkFrontEnd:
                       max_route_peers: int = 2) -> "NetworkFrontEnd":
         raise _not_ported("live health plane (--probe)", "A10")
 
+    def _fleet_placement_counters(self, table_rec: dict) -> dict:
+        """Fleet-total placement counters: this process's snapshot summed
+        with every reachable peer core's (``admin_tier_snapshot``)."""
+        from ..obs import sum_counter_snapshots, tier_snapshot
+        from .rebalancer import peer_tier_snapshots
+
+        snaps = [tier_snapshot("placement")]
+        if self.shard_host is not None:
+            snaps.extend(peer_tier_snapshots(
+                table_rec, self.shard_host.owner_id, "placement",
+                secret=self.admin_secret))
+        total = sum_counter_snapshots(snaps)
+        return {name: v for name, v in total.items()
+                if name.startswith("placement.")}
+
     def server_for(self, tenant: str, doc: str) -> LocalServer:
-        """The LocalServer serving this doc: the single pipeline."""
-        return self.server
+        """The LocalServer serving this doc: the single pipeline, or the
+        doc partition's server in a sharded core (which refuses docs
+        whose lease this process doesn't hold — the gateway routes)."""
+        if self.shard_host is None:
+            return self.server
+        from .stage_runner import doc_partition
+
+        k = doc_partition(tenant, doc, self.shard_host.n)
+        server = self.shard_host.servers.get(k)
+        if server is None:
+            raise RuntimeError(f"not the owner of partition {k}")
+        return server
 
     def _all_servers(self):
+        if self.shard_host is not None:
+            return list(self.shard_host.servers.values())
         return [self.server]
 
     def _flush_logs(self) -> None:
@@ -1402,7 +1969,8 @@ class NetworkFrontEnd:
         regression's prime suspect). Read-only batches (pings, storage
         RPCs, signals) flush nothing at all."""
         dirty = self._dirty_servers
-        n_all = 1
+        n_all = (len(self.shard_host.servers)
+                 if self.shard_host is not None else 1)
         if not dirty:
             self.counters.inc("net.flush.elided", n_all)
             return
@@ -1419,6 +1987,34 @@ class NetworkFrontEnd:
         self.counters.inc("net.flush.performed", flushed)
         if n_all > flushed:
             self.counters.inc("net.flush.elided", n_all - flushed)
+
+    def _on_migration_flip(self, k: int, target_addr: str, epoch: int,
+                           server) -> None:
+        """Post-handoff routing flip (MigrationEngine ``on_flip``, on the
+        loop thread): push the new route to every gateway backbone FIRST
+        — their routing caches patch in-memory, so the reconnects that
+        the session drop below triggers resolve to the target without a
+        table read — then tear down the sealed partition's sessions
+        (direct clients reconnect, gateway sids get ``fdropped``)."""
+        route = {"k": k, "addr": target_addr, "epoch": epoch}
+        for session in list(self._sessions):
+            if session._fsessions or session._ftopics:
+                try:
+                    session.push("fplacement", route)
+                except Exception as e:  # noqa: BLE001
+                    self.logger.error("fplacement_push_error",
+                                      message=str(e))
+        self._drop_server_sessions(server)
+
+    def _drop_server_sessions(self, server) -> None:
+        """Close every live session bound to a revoked partition server
+        (runs on the loop thread via call_soon_threadsafe)."""
+        self._dirty_servers.discard(server)
+        for session in list(self._sessions):
+            try:
+                session.drop_server(server)
+            except Exception as e:  # noqa: BLE001
+                self.logger.error("drop_session_error", message=str(e))
 
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter) -> None:
@@ -1640,6 +2236,43 @@ class NetworkFrontEnd:
                 self._summarize_loop()))
         self._bg_tasks.append(asyncio.get_running_loop().create_task(
             self._presence_loop()))
+        if self.shard_host is not None:
+            loop = asyncio.get_running_loop()
+
+            def on_drop(k, server, loop=loop):
+                # poll may run on an executor thread: hop to the loop
+                loop.call_soon_threadsafe(self._drop_server_sessions,
+                                          server)
+            self.shard_host.on_drop = on_drop
+            self.shard_host.address = f"{self.host}:{self.port}"
+            self.shard_host.poll()  # claim preferred partitions NOW
+            if self._rebalance_cfg is not None:
+                # armed after the first poll: the bound address is in the
+                # epoch table's membership, so peers can target us; the
+                # ticker thread actuates via loopback admin RPCs
+                from .rebalancer import Rebalancer
+
+                self.rebalancer = Rebalancer(
+                    self.shard_host, self.migration_engine,
+                    slo_engine=self.slo_engine,
+                    actuate=self._rebalance_actuate,
+                    secret=self.admin_secret,
+                    **self._rebalance_cfg).start()
+
+            async def lease_loop():
+                interval = self.shard_host.placement.ttl_s / 3.0
+                while True:
+                    await asyncio.sleep(interval)
+                    try:
+                        # takeover construction replays the partition's
+                        # durable log — off the event loop, so live
+                        # sessions on OTHER partitions never stall
+                        await loop.run_in_executor(None,
+                                                   self.shard_host.poll)
+                    except Exception as e:  # noqa: BLE001
+                        self.logger.error("lease_poll_error",
+                                          message=str(e))
+            self._bg_tasks.append(loop.create_task(lease_loop()))
         self._ready.set()
 
     def start_background(self) -> "NetworkFrontEnd":
@@ -1660,6 +2293,9 @@ class NetworkFrontEnd:
         return self
 
     def stop(self) -> None:
+        if self.rebalancer is not None:
+            self.rebalancer.stop()
+            self.rebalancer = None
         if self._loop is not None:
             loop = self._loop
 
@@ -1731,44 +2367,46 @@ def main() -> None:
     parser.add_argument("--max-message-size", type=int, default=None)
     parser.add_argument("--tenant", action="append", default=[],
                         metavar="ID:SECRET",
-                        help="register a tenant (token auth enforced; "
-                             "not ported, ROADMAP A10)")
+                        help="register a tenant (token auth enforced)")
     # split-service composition (stage_runner.py): the core owns the
-    # durable log + sockets + deli/scriptorium/broadcaster; the applier
-    # runs as a separate OS process over the same log
+    # durable log + sockets + deli/scriptorium/broadcaster; scribe and
+    # the applier run as separate OS processes over the same log
     parser.add_argument("--log-dir", default=None,
                         help="durable C++ op log directory (this process "
                              "is its single writer)")
     parser.add_argument("--storage-dir", default=None,
                         help="native chunk-store directory for blobs")
-    parser.add_argument("--storage-server", default=None,
-                        metavar="HOST:PORT|PORT",
+    parser.add_argument("--storage-server", default=None, metavar="PORT",
                         help="route ALL storage to a storage_server.py "
-                             "process")
+                             "process (host:port or port on localhost)")
     parser.add_argument("--external-scribe", action="store_true",
-                        help="scribe runs out of process (stage_runner "
-                             "--stage scribe); uploads are announced on "
-                             "the log's uploads/<tenant>/<doc> topics")
+                        help="scribe runs out of process; summary "
+                             "uploads are announced on the log")
     parser.add_argument("--consume-backchannel", action="append",
                         default=[], metavar="STATE_DIR",
                         help="a stage process's state dir to consume")
+    # sharded ordering core: N core processes share a
+    # deployment dir; each claims doc partitions via placement leases
+    # and serves only its docs; gateways route by partition
     parser.add_argument("--shard-dir", default=None,
-                        help="sharded-core deployment dir (not ported, "
-                             "ROADMAP A10)")
+                        help="sharded-core deployment dir (leases + "
+                             "per-partition durable logs)")
     parser.add_argument("--shards", type=int, default=0,
-                        help="number of doc partitions (not ported, "
-                             "ROADMAP A10)")
+                        help="number of doc partitions")
     parser.add_argument("--prefer", default="", metavar="K[,K...]",
-                        help="partitions to claim at startup (not "
-                             "ported, ROADMAP A10)")
+                        help="partitions to claim at startup (others "
+                             "only by stale-lease takeover)")
     parser.add_argument("--lease-ttl", type=float, default=None,
-                        help="lease staleness threshold in seconds (not "
-                             "ported, ROADMAP A10)")
+                        help="lease staleness threshold in seconds")
     parser.add_argument("--admin-secret", default=None,
-                        help="shared secret gating the admin RPCs")
+                        help="shared secret gating the admin RPCs "
+                             "(required when tenancy is enforcing)")
     parser.add_argument("--journal", default=None, metavar="PATH",
                         help="arm the control-plane audit journal at "
-                             "PATH")
+                             "PATH (sharded cores arm automatically "
+                             "under the shard dir; this is the "
+                             "single-pipeline / bench A/B door)")
+    # overload-control loop (see service/admission.py + obs/slo.py)
     parser.add_argument("--tenant-rate", action="append", default=[],
                         metavar="ID:RATE[:BURST]",
                         help="cap a tenant's admission rate in ops/s "
@@ -1786,33 +2424,127 @@ def main() -> None:
                         help="run the service summarizer loop: a new "
                              "columnar snapshot every N sequenced ops "
                              "per doc (the snapshot fast-boot plane)")
+    # self-driving placement (service/rebalancer.py): close the
+    # load→decision→migration loop on this core
     parser.add_argument("--rebalance", action="store_true",
-                        help="arm the placement rebalancer daemon (not "
-                             "ported, ROADMAP A10)")
+                        help="arm the placement rebalancer daemon "
+                             "(requires --shard-dir)")
+    parser.add_argument("--rebalance-tick", type=float, default=0.5,
+                        metavar="S", help="planner tick interval")
+    parser.add_argument("--rebalance-dwell", type=float, default=10.0,
+                        metavar="S", help="per-partition minimum dwell "
+                                          "between moves")
+    parser.add_argument("--rebalance-budget", type=int, default=2,
+                        metavar="N", help="max migrations per tick from "
+                                          "this core")
+    parser.add_argument("--rebalance-improvement", type=float,
+                        default=0.25, metavar="F",
+                        help="min hottest→coldest gap as a fraction of "
+                             "mean load before a move is worth it")
+    # live health plane (obs/probe.py + obs/health.py): canary probes
+    # through this core's own doors + the doctor's rules evaluated
+    # continuously, served by the admin_health RPC
     parser.add_argument("--probe", action="store_true",
                         help="arm the live health plane (not ported, "
                              "ROADMAP A10)")
+    parser.add_argument("--probe-tick", type=float, default=2.0,
+                        metavar="S", help="canary probe interval")
+    parser.add_argument("--health-tick", type=float, default=1.0,
+                        metavar="S", help="health rule evaluation "
+                                          "interval")
+    parser.add_argument("--health-critical-ticks", type=int, default=3,
+                        metavar="N",
+                        help="consecutive anomalous ticks before a "
+                             "component goes degraded → critical")
+    # fleet topology spec (service/topology.py): the whole deployment
+    # as one JSON object; every sharded construction path converges on
+    # topology.build_core, so a restart from the spec IS the start
     parser.add_argument("--topology", default=None, metavar="SPEC.json",
                         help="start one core of a declarative fleet "
-                             "spec (not ported, ROADMAP A10)")
+                             "spec (supersedes the --shard-dir flag "
+                             "family)")
+    parser.add_argument("--core-index", type=int, default=0,
+                        metavar="I", help="which spec core this "
+                                          "process is")
+    parser.add_argument("--boot-rate", type=float, default=200.0,
+                        metavar="N",
+                        help="boot-storm admission: doc rehydrations "
+                             "per second this core will run; excess "
+                             "first-routes park on the retry lane "
+                             "(0 disarms)")
+    parser.add_argument("--boot-burst", type=int, default=32,
+                        metavar="N",
+                        help="boot-storm admission burst size")
     args = parser.parse_args()
-    for flag, value, item in (
-            ("--tenant", args.tenant, "A10"),
-            ("--tenant-rate", args.tenant_rate, "A10"),
-            ("--slo", args.slo, "A10"),
-            ("--probe", args.probe, "A10"),
-            ("--shard-dir", args.shard_dir, "A10"),
-            ("--shards", args.shards, "A10"),
-            ("--prefer", args.prefer, "A10"),
-            ("--lease-ttl", args.lease_ttl, "A10"),
-            ("--no-shed", args.no_shed, "A10"),
-            ("--topology", args.topology, "A10"),
-            ("--rebalance", args.rebalance, "A10")):
+    for flag, value in (("--tenant-rate", args.tenant_rate),
+                        ("--slo", args.slo), ("--no-shed", args.no_shed),
+                        ("--probe", args.probe)):
         if value:
-            raise _not_ported(f"option {flag}", item)
+            # the overload and health plane (obs/slo.py, obs/health.py)
+            raise _not_ported(f"option {flag}", "A10")
+    if args.rebalance and args.shard_dir is None and args.topology is None:
+        parser.error("--rebalance requires --shard-dir")
+    if args.topology is not None or args.shard_dir is not None:
+        import gc as _gc
+
+        from .topology import CoreSpec, TopologySpec, build_core
+
+        if args.consume_backchannel or args.external_scribe:
+            parser.error("sharded cores do not compose with per-stage "
+                         "backchannels yet")
+        if args.tenant or args.log_dir or args.storage_dir:
+            # refuse loudly: silently dropping --tenant would start an
+            # auth-less deployment the operator believes is secured
+            parser.error("sharded cores do not compose with --tenant/"
+                         "--log-dir/--storage-dir (per-partition logs "
+                         "live under the shard dir; use "
+                         "--storage-server for storage)")
+        if args.topology is not None:
+            spec = TopologySpec.load(args.topology)
+            core_index = args.core_index
+        else:
+            # the flag family is now sugar: one single-core spec, same
+            # construction path. The core's journal file is named by
+            # its STABLE role (preferred partitions) so a restarted
+            # core reopens its own journal and continues the id space
+            # — that is what makes core.recover detectable.
+            prefer = [int(k) for k in args.prefer.split(",") if k != ""]
+            name = ("core-" + "-".join(str(k) for k in prefer)
+                    if prefer else "")
+            spec = TopologySpec(
+                shard_dir=args.shard_dir, n_partitions=args.shards,
+                cores=[CoreSpec(name=name, prefer=prefer,
+                                port=args.port)],
+                host=args.host, lease_ttl=args.lease_ttl,
+                admin_secret=args.admin_secret,
+                summarize_every=args.summarize_every,
+                storage_server=args.storage_server,
+                boot_rate=args.boot_rate, boot_burst=args.boot_burst,
+                rebalance=({
+                    "tick_s": args.rebalance_tick,
+                    "dwell_s": args.rebalance_dwell,
+                    "budget": args.rebalance_budget,
+                    "improvement": args.rebalance_improvement,
+                } if args.rebalance else None))
+            core_index = 0
+        _gc.freeze()
+        _gc.disable()
+        front = build_core(spec, core_index)
+        if args.max_message_size is not None:
+            front.max_message_size = args.max_message_size
+        front.serve_forever()
+        return
     server = None
-    if args.log_dir or args.storage_dir or args.external_scribe \
-            or args.storage_server:
+    tenants = None
+    if args.tenant:
+        from .tenants import TenantManager
+
+        tenants = TenantManager()
+        for spec in args.tenant:
+            tid, _, secret = spec.partition(":")
+            tenants.register(tid, secret)
+    if args.tenant or args.log_dir or args.storage_dir \
+            or args.external_scribe or args.storage_server:
         log = None
         if args.log_dir:
             from .durable_log import DurableLog
@@ -1822,7 +2554,8 @@ def main() -> None:
         if args.storage_server:
             host, _, port = args.storage_server.rpartition(":")
             storage_server = (host or "127.0.0.1", int(port))
-        server = LocalServer(log=log, storage_dir=args.storage_dir,
+        server = LocalServer(tenants=tenants, log=log,
+                             storage_dir=args.storage_dir,
                              external_scribe=args.external_scribe,
                              storage_server=storage_server)
         if args.external_scribe:

@@ -1,13 +1,13 @@
 """Gateway: a horizontally-scalable front-end instance.
 
 JAX counterpart: ``fluidframework_tpu/service/gateway.py``; the port's
-copy of the single-core relay, imports rebased to this package. ``main``
-runs the port's native relay (``csrc/gateway.cpp`` through
-``native/gateway.py``) unless ``--python`` asks for the asyncio relay; a
-native build or load failure raises and never falls back. Sharded-core
-routing (``shard_dir``, ``table_server``) and the relay tree
-(``--upstream-gateway``) are not ported yet (ROADMAP A10) and raise
-``NotImplementedError``.
+copy, imports rebased to this package. ``main`` runs the port's native
+relay (``csrc/gateway.cpp`` through ``native/gateway.py``) unless
+``--python`` asks for the asyncio relay; a native build or load failure
+raises and never falls back. Sharded-core routing (``--shard-dir``,
+``--table-server``: each doc to its partition's lease holder through the
+``RoutingCache``, patched by ``fplacement`` pushes) and the relay tree
+(``--upstream-gateway``) take the asyncio relay, as in the JAX package.
 
 Ref: the reference runs N Alfred instances behind Redis-backed socket.io
 (services/src/socketIoRedisPublisher.ts) — each Alfred terminates client
@@ -69,12 +69,6 @@ from ..protocol import binwire
 from ..utils.telemetry import HOP_RELAY
 from .front_end import (_BULK_FRAMES, _encode_frame, _frame_buffered,
                         _read_body)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"gateway {what} is not ported to fluidframework_tpu_torch yet "
-        f"(ROADMAP {item})")
 
 
 class _CoreError(RuntimeError):
@@ -395,14 +389,17 @@ class _Upstream:
 
 
 class Gateway:
-    """The classic single-core topology. ``shard_dir``/``shards`` and
-    ``table_server`` (sharded-core routing: each doc to the core holding
-    its partition's lease) are ROADMAP A10 and raise."""
+    """``shard_dir``/``shards`` switch on sharded-core routing: each doc
+    routes to the core holding its partition's lease (placement.py); a
+    core's death kills only ITS sessions, and the next resolution picks
+    up the takeover owner. Without them the gateway runs the classic
+    single-core topology."""
 
     def __init__(self, core_host: str, core_port: int,
                  host: str = "127.0.0.1", port: int = 0,
                  shard_dir: Optional[str] = None, shards: int = 0,
-                 table_server: Optional[str] = None):
+                 table_server: Optional[str] = None,
+                 host_id: Optional[str] = None):
         self.core_host, self.core_port = core_host, core_port
         self.host, self.port = host, port
         self.sessions: dict[int, _GatewaySession] = {}
@@ -410,10 +407,41 @@ class Gateway:
         self.sid_counter = itertools.count(1)
         self._rid_counter = itertools.count(1)
         self._pending: dict[int, asyncio.Future] = {}
-        if shard_dir is not None or shards or table_server:
-            # sharded-core routing: the placement leases, the epoch
-            # table and its routing cache come with the sharded core
-            raise _not_ported("sharded-core routing", "A10")
+        self.placement = None
+        self.routing = None
+        # multi-host: which host group this gateway runs in; with a
+        # table set, every route resolution is classified same-host vs
+        # cross-host (fanout.upstream.same_host / .cross_host) — the
+        # weak-scaling bench's locality hit rate
+        self.host_id = host_id
+        self._table = None
+        self._addr_hosts: dict = {}
+        if shard_dir is not None:
+            import os
+
+            from .placement import PlacementDir
+            from .placement_plane import EpochTable, RoutingCache
+
+            self.placement = PlacementDir(
+                os.path.join(shard_dir, "placement"), shards)
+            # hot-path routing: in-memory dict, epoch-table refresh on
+            # miss, lease read only as the liveness fallback — replaces
+            # the old per-connect owner_of poll (placement_plane)
+            self._table = EpochTable.for_shard_dir(shard_dir)
+            self.routing = RoutingCache(self.placement, self._table)
+        elif table_server:
+            # remote host group: no placement dir to read — the same
+            # RoutingCache machinery runs over RPC proxies against the
+            # placement host's table door (table_client.py); epoch-gated
+            # fplacement pushes are the cache-coherence protocol either
+            # way
+            from .placement_plane import RoutingCache
+            from .table_client import RemoteTableClient
+
+            client = RemoteTableClient(table_server, shards)
+            self.placement = client.leases
+            self._table = client.table
+            self.routing = RoutingCache(self.placement, self._table)
         self._upstreams: dict[str, _Upstream] = {}
         self._upstream_dials: dict[str, "asyncio.Future"] = {}
         self._up_default: Optional[_Upstream] = None
@@ -470,20 +498,63 @@ class Gateway:
                 fut.set_result(None)
 
     async def _connect_upstream(self) -> None:
-        self._up_default = await self._open_upstream(
-            f"{self.core_host}:{self.core_port}")
+        if self.placement is None:
+            self._up_default = await self._open_upstream(
+                f"{self.core_host}:{self.core_port}")
 
     async def upstream_for(self, tenant: str, doc: str) -> _Upstream:
-        """The backbone connection of the core owning this doc: the one
-        core (sharded-core routing is ROADMAP A10)."""
-        if self._up_default is None or self._up_default.writer.is_closing():
-            self._up_default = None
-            await self._connect_upstream()
-        return self._up_default
+        """The backbone connection of the core owning this doc."""
+        if self.placement is None:
+            if self._up_default is None or \
+                    self._up_default.writer.is_closing():
+                self._up_default = None
+                await self._connect_upstream()
+            return self._up_default
+        from .stage_runner import doc_partition
+
+        k = doc_partition(tenant, doc, self.placement.n)
+        deadline = asyncio.get_running_loop().time() + 15.0
+        while True:
+            addr = self.routing.resolve(k)
+            if addr is not None:
+                if self.host_id is not None:
+                    self.counters.inc(
+                        "fanout.upstream.same_host"
+                        if self._host_of_addr(addr) == self.host_id
+                        else "fanout.upstream.cross_host")
+                try:
+                    return await self._open_upstream(addr)
+                except OSError:
+                    # owner died between route and dial: drop the route
+                    # so the retry re-reads table + lease
+                    self.routing.invalidate(k)
+            if asyncio.get_running_loop().time() > deadline:
+                raise ConnectionError(
+                    f"no live core owns partition {k}")
+            await asyncio.sleep(0.2)
+
+    def _host_of_addr(self, addr: str):
+        """Which host group advertises ``addr`` in the table's cores
+        rows (lazily cached — membership changes re-resolve on miss)."""
+        h = self._addr_hosts.get(addr)
+        if h is None and self._table is not None:
+            for row in self._table.cores().values():
+                a = row.get("addr")
+                if a:
+                    self._addr_hosts[a] = row.get("host") or ""
+            h = self._addr_hosts.get(addr)
+        return h or None
 
     def note_route_failure(self, tenant: str, doc: str) -> None:
-        """A core refused the doc. A sharded-core gateway drops its
-        cached route here; the one core has none to drop."""
+        """A core refused the doc (``not the owner`` after a migration
+        this gateway missed): drop the cached route so the client's
+        reconnect resolves fresh instead of looping on the old owner."""
+        if self.routing is None:
+            return
+        from .stage_runner import doc_partition
+
+        self.routing.invalidate(doc_partition(tenant, doc,
+                                              self.placement.n))
 
     def upstream_send(self, obj: dict, up: Optional[_Upstream] = None
                       ) -> None:
@@ -643,10 +714,15 @@ class Gateway:
                                              "signal": frame["signal"]})
                     session.push_raw(raw)
         elif t == "fplacement":
-            # routing flip push: a sharded core committed a migration.
-            # The one core's gateway has no routing cache to patch
-            # (ROADMAP A10); relay tiers forward the push verbatim so the
-            # whole tree learns the flip at once.
+            # routing flip push: the core committed a migration; patch
+            # the cache in-memory (epoch-gated — a late push about an
+            # older epoch is ignored) so the reconnects triggered by the
+            # fdropped/teardown that follows resolve straight to the
+            # new owner without a table read. Relay tiers forward the
+            # push verbatim so the WHOLE tree learns the flip at once.
+            if self.routing is not None:
+                self.routing.note_epoch(int(frame["k"]), frame["addr"],
+                                        int(frame["epoch"]))
             raw = None
             for session in list(self.links):
                 if raw is None:
@@ -806,39 +882,48 @@ def main() -> None:
         description="Fluid gateway front end (PyTorch port)")
     p.add_argument("--core-host", default="127.0.0.1")
     p.add_argument("--core-port", type=int, default=0,
-                   help="the ordering core's port")
+                   help="single-core topology (omit with --shard-dir)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--shard-dir", default=None,
-                   help="sharded-core deployment dir (not ported, "
-                        "ROADMAP A10)")
+                   help="sharded-core deployment dir (placement leases); "
+                        "docs route to their partition's owning core")
     p.add_argument("--shards", type=int, default=0,
-                   help="number of doc partitions in the sharded core "
-                        "(not ported, ROADMAP A10)")
+                   help="number of doc partitions in the sharded core")
     p.add_argument("--table-server", default=None, metavar="HOST:PORT",
-                   help="remote-host routing (not ported, ROADMAP A10)")
+                   help="remote-host deployment: route from the "
+                        "placement host's table door (admin_table_*) "
+                        "instead of a local --shard-dir")
     p.add_argument("--host-id", default=None,
                    help="this gateway's host group id (multi-host "
-                        "fleets; not ported, ROADMAP A10)")
+                        "fleets): routes are counted same- vs "
+                        "cross-host for the locality hit rate")
     p.add_argument("--upstream-gateway", default=None, metavar="HOST:PORT",
-                   help="relay-tree mode (not ported, ROADMAP A10)")
+                   help="relay-tree mode: dial a PARENT GATEWAY as the "
+                        "upstream instead of a core — fan-out bytes "
+                        "splice through each tier with zero re-encode")
     p.add_argument("--python", action="store_true",
                    help="use the asyncio relay (compat path: serves "
                         "JSON-ops legacy clients the native loop refuses)")
     args = p.parse_args()
-    for flag, value in (("--shard-dir", args.shard_dir),
-                        ("--shards", args.shards),
-                        ("--host-id", args.host_id),
-                        ("--table-server", args.table_server),
-                        ("--upstream-gateway", args.upstream_gateway)):
-        if value:
-            raise _not_ported(f"option {flag}", "A10")
-    if not args.core_port:
-        p.error("--core-port is required")
-    if not args.python:
+    if args.upstream_gateway:
+        # an upstream gateway speaks the same backbone protocol a core
+        # does; the asyncio relay (which SERVES that protocol to the
+        # next tier down) is what stacks, so skip the native loop
+        host, _, port = args.upstream_gateway.rpartition(":")
+        args.core_host, args.core_port = host or "127.0.0.1", int(port)
+        args.python = True
+    if args.shard_dir is None and args.table_server is None \
+            and not args.core_port:
+        p.error("--core-port is required without --shard-dir / "
+                "--table-server (or --upstream-gateway)")
+    if not args.python and args.shard_dir is None \
+            and args.table_server is None:
         # default: the C++ epoll relay (csrc/gateway.cpp) — zero Python
         # on the hot path. A build or load failure raises: only
-        # --python selects the asyncio relay.
+        # --python selects the asyncio relay. Sharded routing
+        # (--shard-dir, --table-server) runs the asyncio relay, as the
+        # JAX package does: the native loop is single-upstream.
         from ..native.gateway import NativeGateway
 
         ng = NativeGateway(args.core_host, args.core_port,
@@ -850,7 +935,10 @@ def main() -> None:
     gc.freeze()
     gc.disable()
     Gateway(args.core_host, args.core_port,
-            host=args.host, port=args.port).serve_forever()
+            host=args.host, port=args.port,
+            shard_dir=args.shard_dir, shards=args.shards,
+            table_server=args.table_server,
+            host_id=args.host_id).serve_forever()
 
 
 if __name__ == "__main__":

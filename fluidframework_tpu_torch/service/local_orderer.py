@@ -1,9 +1,9 @@
 """LocalOrderer: the REAL pipeline lambdas over the in-memory log.
 
 JAX counterpart: ``fluidframework_tpu/service/local_orderer.py``; the
-port's copy, imports rebased to this package. Lazy cold boot (and with it
-the canary tenant's boot counters) is not ported yet (ROADMAP A10): the
-orderer always replays its topics from the start.
+port's copy, imports rebased to this package, lazy cold boot
+(``lazy_boot=``: O(snapshot + tail) over a checkpoint and an acked
+summary) included.
 
 Ref: memory-orderer/src/localOrderer.ts:88,228-270 — wires actual
 Deli/Broadcaster/Scriptorium/Scribe instances over LocalKafka queues, so
@@ -26,6 +26,12 @@ from .scribe import SCRIBE_CHECKPOINT_COLLECTION, ScribeLambda
 from .scriptorium import ScriptoriumLambda
 
 CHECKPOINT_COLLECTION = "deli-checkpoints"
+
+#: Lazy cold boot keeps this many ops below the acked boot summary in
+#: the rebuilt scriptorium store when no retention margin is configured
+#: — the same in-flight-backfill safety window config.log_retention_ops
+#: defaults to.
+LAZY_BOOT_MARGIN = 1000
 
 
 def _versions_topic(tenant_id: str, document_id: str) -> str:
@@ -84,6 +90,7 @@ class LocalOrderer:
         log_retention_ops: Optional[int] = None,
         external_scribe: bool = False,
         on_version_persisted=None,
+        lazy_boot: bool = False,
     ):
         # fires once per newly-acked version, after the durable append —
         # the storage-process deployment advances the doc's named ref here
@@ -165,15 +172,64 @@ class LocalOrderer:
         # Handler objects are kept for close(): bound-method attribute
         # access creates a fresh object each time, so unsubscribe needs the
         # exact references that were registered.
+        #
+        # LAZY COLD BOOT (fleet cold start): with ``lazy_boot`` and a
+        # usable checkpoint + acked summary, the replay is O(tail), not
+        # O(whole log). Deli and scribe resume one past their
+        # checkpointed offsets (their handlers would skip every earlier
+        # record anyway — subscribing past them skips the READS and
+        # decodes); scriptorium keeps only the tail a joiner cannot get
+        # from the latest acked summary, with the truncation declared
+        # BEFORE the replay so the append path drops boundary overlap.
+        raw_from = 0
+        scrip_from = 0
+        scribe_from = 0
+        self.boot_mode = None  # None (in-proc warm) | fresh|lazy|full_replay
+        if lazy_boot:
+            boot_seq = self.acked_boot_seq()
+            if log.length(self.raw_topic) <= 0:
+                self.boot_mode = "fresh"
+            elif checkpoint is not None and boot_seq is not None:
+                margin = (self._retention_margin
+                          if self._retention_margin is not None
+                          else LAZY_BOOT_MARGIN)
+                lazy_base = max(
+                    log_cp.get("scriptorium_base", 0) if log_cp else 0,
+                    boot_seq - margin, 0)
+                raw_from = checkpoint.log_offset + 1
+                if scribe_state is not None:
+                    scribe_from = int(scribe_state.get("offset", -1)) + 1
+                self.scriptorium.truncate_below(
+                    tenant_id, document_id, lazy_base)
+                scrip_from = log.first_offset_covering(
+                    self.deltas_topic, lazy_base + 1)
+                self.boot_mode = "lazy"
+            else:
+                # no checkpoint or no acked summary: a joiner would have
+                # nothing to boot from but the ops — replay it all
+                self.boot_mode = "full_replay"
+        from ..obs.probe import CANARY_TENANT
+        from .rehydrate import boot_counters
+        if tenant_id == CANARY_TENANT:
+            # canary isolation: the synthetic doc is summary-less by
+            # design, so its (tiny) boots must not trip the cold-start
+            # contract (boot.part.full_replay == 0) or the doctor's
+            # boot_anomalies rule on a respawned core
+            pass
+        elif self.boot_mode == "lazy":
+            boot_counters().inc("boot.part.lazy")
+        elif self.boot_mode == "full_replay":
+            boot_counters().inc("boot.part.full_replay")
+        elif self.boot_mode == "fresh":
+            boot_counters().inc("boot.part.fresh")
         self._subscriptions = [
-            (self.raw_topic, self.deli.handler, 0),
-            (self.deltas_topic, self.scriptorium.handler, 0),
-            (self.deltas_topic, self.broadcaster.handler,
-             log.length(self.deltas_topic)),
+            (self.raw_topic, self.deli.handler, raw_from),
+            (self.deltas_topic, self.scriptorium.handler, scrip_from),
+            (self.deltas_topic, self.broadcaster.handler, log.length(self.deltas_topic)),
         ]
         if not external_scribe:
             self._subscriptions.insert(
-                2, (self.deltas_topic, self.scribe.handler, 0))
+                2, (self.deltas_topic, self.scribe.handler, scribe_from))
         for topic, handler, from_offset in self._subscriptions:
             self._log.subscribe(topic, handler, from_offset=from_offset)
         # re-apply the persisted retention AFTER the deltas-topic replay

@@ -8,12 +8,11 @@ package. ``storage_dir`` puts blobs in the native chunk store
 under it; ``storage_server`` routes all storage to a storage process
 (``storage_server.py``) and advances the doc's named ref there on every
 scribe ack; ``external_scribe`` leaves validation and acking to a scribe
-stage process (``stage_runner.ScribeStage``). Options that the port does
-not carry yet raise ``NotImplementedError`` naming their ROADMAP item:
-``tenants`` (token validation), lazy boot with its rehydrator, and the
-placement epoch fence (A10). The placement plane's seal, revoke and lease
-hooks come with the sharded core (A10). The history plane (``history``)
-is the JAX package's.
+stage process (``stage_runner.ScribeStage``). ``tenants`` validates
+tokens riddler-style at connect; the sharded core's hooks (``seal``,
+``revoke``, ``lease_fresh``, ``epoch_fence``, ``part_k``, lazy boot with
+its rehydrator and ``scan_boot_pending``) are the JAX package's. So is
+the history plane (``history``).
 
 Ref: local-server/src/localDeltaConnectionServer.ts:59-118 (the test
 backbone) and server/tinylicious (the single-process deployment). The
@@ -53,12 +52,6 @@ from .deli import RawBoxcar, RawMessage
 from .local_log import LocalLog
 from .local_orderer import LocalOrderer
 from .scriptorium import LogTruncatedError
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"LocalServer {what} is not ported to fluidframework_tpu_torch yet "
-        f"(ROADMAP {item})")
 
 
 class ServerConnection:
@@ -186,10 +179,10 @@ class LocalServer:
         external_scribe: bool = False,
         storage_server=None,
     ):
-        if tenants:
-            raise _not_ported("option tenants", "A10")
         # unified config registry (SURVEY §5.6): explicit args still win
         self.config = config if config is not None else DEFAULT
+        # tenant registry (riddler role); empty/None = open dev mode
+        self.tenants = tenants
         if client_timeout is None:
             client_timeout = self.config.client_timeout_s
         # sink-less by default: zero cost until a host injects a sink
@@ -202,9 +195,6 @@ class LocalServer:
         self.log = log if log is not None else LocalLog()
         self.db = InMemoryDb()
         self.pubsub = PubSub()
-        # tenant registry (riddler role): the port runs in open dev mode
-        # (None), the registry comes with ROADMAP A10
-        self.tenants = None
         # content-addressed blob store: native C++ chunk store when given
         # a directory (the gitrest/libgit2 role), else db-backed
         self.storage_dir = storage_dir
@@ -243,6 +233,39 @@ class LocalServer:
         # vs remote by id), hence the random epoch component
         self._client_epoch = uuid.uuid4().hex[:6]
         self._client_counter = itertools.count(1)
+        # sharded core: set when this partition's lease was lost — every
+        # order path refuses, so a dispossessed server can never write
+        # its (now someone else's) durable log again
+        self._revoked = False
+        # lease fencing (sharded core): a callable returning True while
+        # this partition's lease was confirmed RECENTLY. Checked on
+        # every order path: a process that stalled past the TTL (GC
+        # pause, SIGSTOP) and wakes with buffered submits must refuse
+        # them BEFORE its heartbeat loop discovers the takeover —
+        # otherwise it interleaves appends into a log the new owner is
+        # already writing (the classic two-writer corruption).
+        self.lease_fresh = None
+        # migration seal (placement_plane.MigrationEngine): submits are
+        # refused while the partition's state ships to the new owner —
+        # softer than revoke (reads/broadcasts still flow; the front end
+        # bounces submits on the retryable shed lane instead of erroring)
+        self._sealed = False
+        # epoch fence (deli admission): a callable returning the CURRENT
+        # table epoch when this server's claim epoch is stale, else None
+        self.epoch_fence = None
+        # which doc partition this server sequences (sharded cores only;
+        # ShardHost._make_server stamps it) — the front end labels the
+        # rebalancer's windowed heat series with it, and None means
+        # single-pipeline: no heat accounting, nowhere to rebalance
+        self.part_k = None
+        # fleet cold start (service/rehydrate.py): lazy_boot makes every
+        # first-route pipeline build O(snapshot+tail); the rehydrator —
+        # when ShardHost arms one — parks excess first-routes during a
+        # boot storm instead of letting them monopolize the loop
+        self.lazy_boot = False
+        self.rehydrator = None
+        self._rehydrated_noted = False
+        self._boot_inventory: set[str] = set()
 
     @property
     def history(self):
@@ -254,34 +277,36 @@ class LocalServer:
             self._history = HistoryPlane(self)
         return self._history
 
-    # ------------------------------------------- options not ported yet
+    def seal(self) -> None:
+        """Migration fence point: refuse new submits (they bounce with a
+        retryable redirect) while the checkpoint ships to the target."""
+        self._sealed = True
+
+    def unseal(self) -> None:
+        self._sealed = False
 
     @property
-    def epoch_fence(self):
-        return None
+    def sealed(self) -> bool:
+        return self._sealed
 
-    @epoch_fence.setter
-    def epoch_fence(self, fence) -> None:
-        if fence is not None:
-            raise _not_ported("placement epoch fence", "A10")
+    def doc_sequence_numbers(self) -> dict[str, int]:
+        """Fence seqs per live doc (``tenant/doc`` → deli seq) — exact
+        once sealed, since the ordering loop is single-threaded."""
+        return {key: o.deli.sequence_number
+                for key, o in self._orderers.items()}
 
-    @property
-    def lazy_boot(self) -> bool:
-        return False
+    def revoke(self) -> None:
+        """Partition lease lost (ShardHost.poll): stop sequencing NOW.
+        The front end also tears down the partition's live sessions so
+        clients reconnect to the takeover owner."""
+        self._revoked = True
 
-    @lazy_boot.setter
-    def lazy_boot(self, on: bool) -> None:
-        if on:
-            raise _not_ported("lazy boot", "A10")
-
-    @property
-    def rehydrator(self):
-        return None
-
-    @rehydrator.setter
-    def rehydrator(self, rehydrator) -> None:
-        if rehydrator is not None:
-            raise _not_ported("lazy-boot rehydrator", "A10")
+    def _check_revoked(self) -> None:
+        if self._revoked or (self.lease_fresh is not None
+                             and not self.lease_fresh()):
+            raise RuntimeError("partition lease lost: reconnect")
+        if self._sealed:
+            raise RuntimeError("partition sealed for migration: reconnect")
 
     # ------------------------------------------------------------------ api
 
@@ -295,18 +320,38 @@ class LocalServer:
         readonly: bool = False,
     ) -> ServerConnection:
         """The connect_document handshake: join the quorum, get a live
-        connection primed at the current sequence number.
+        connection primed at the current sequence number. With a tenant
+        registry configured, the token is validated riddler-style BEFORE
+        any document state is touched (ref: alfred connect_document →
+        tenantManager.verifyToken). A doc:read-only token gets a READ
+        connection: it may watch the stream, but submits are nacked with
+        InvalidScopeError (ref: readonly connections, tokens.ts scopes).
 
-        ``readonly=True`` requests the fast reader session: no join op
-        is ordered, the clientId never enters the quorum, and the
-        session costs the op path nothing. ``token`` is accepted and
-        ignored: the port runs in open dev mode (no tenant registry)."""
+        ``readonly=True`` requests the fast reader session regardless of
+        token scope: no join op is ordered, the clientId never enters
+        the quorum, and the session costs the op path nothing — the
+        audience tier for read-scale fan-out."""
+        self._check_revoked()
         can_write = not readonly
+        if self.tenants is not None:
+            from .tenants import SCOPE_READ, SCOPE_WRITE
+
+            claims = self.tenants.validate(token, tenant_id, document_id,
+                                           required_scope=SCOPE_READ)
+            can_write = can_write and SCOPE_WRITE in claims.get(
+                "scopes", [])
+        if (self.rehydrator is not None
+                and f"{tenant_id}/{document_id}" not in self._orderers):
+            # boot-storm admission: a first-route to a cold doc takes a
+            # boot slot or parks (BootPending → retryable nack); routes
+            # to already-warm docs never touch the bucket
+            self.rehydrator.admit(tenant_id, document_id)
         orderer = self._get_orderer(tenant_id, document_id)
         client_id = f"client-{self._client_epoch}-{next(self._client_counter)}"
         conn = ServerConnection(self, tenant_id, document_id, client_id, details)
         conn.can_write = can_write
-        conn.mode = "readonly" if readonly else "write"
+        conn.mode = "readonly" if readonly else (
+            "write" if can_write else "read")
 
         topic = BroadcasterLambda.topic(tenant_id, document_id)
         conn._op_cb = conn._deliver_ops  # op topics carry batches
@@ -338,7 +383,10 @@ class LocalServer:
                 )
             )
         # read connections NEVER join: they are not quorum members and
-        # must not contribute to the msn
+        # must not contribute to the msn — a reader cannot submit (its
+        # ops scope-nack), so a joined reader would pin the collaboration
+        # window forever (ref: read connections stay out of the quorum;
+        # they exist only in the audience)
         self._maybe_drain()
         return conn
 
@@ -482,18 +530,56 @@ class LocalServer:
                 log_retention_ops=retention if retention >= 0 else None,
                 external_scribe=self.external_scribe,
                 on_version_persisted=on_persisted,
+                lazy_boot=self.lazy_boot,
                 **kw)
+            # epoch fence: deli consults the server's CURRENT fence on
+            # every record (closure, so arming after boot still applies)
+            self._orderers[key].deli.epoch_fence = (
+                lambda: self.epoch_fence() if self.epoch_fence is not None
+                else None)
+            if (self._orderers[key].boot_mode == "lazy"
+                    and not self._rehydrated_noted):
+                self._rehydrated_noted = True
+                from ..obs.journal import get_journal
+
+                get_journal().emit("part.rehydrated", part=self.part_k,
+                                   doc=key)
         return self._orderers[key]
 
+    # ------------------------------------------------------- cold start
+
+    def scan_boot_pending(self) -> int:
+        """Cold-start inventory: docs present on this partition's log
+        with no live pipeline yet. Listing is one directory scan (no
+        record reads) — the lazy contract. Feeds ``admin placement
+        boot`` progress."""
+        topics = getattr(self.log, "list_topics", None)
+        if topics is None:
+            return 0
+        self._boot_inventory = {
+            t[len("rawops/"):] for t in topics("rawops/")}
+        return len(self._boot_inventory)
+
+    def boot_status(self) -> dict:
+        """Rehydration progress for the operator door."""
+        pending = sum(1 for k in self._boot_inventory
+                      if k not in self._orderers)
+        return {"part": self.part_k,
+                "docs_booted": len(self._orderers),
+                "docs_pending": pending}
+
     def _submit(self, conn: ServerConnection, messages: list[DocumentMessage]) -> None:
-        if not conn.can_write:
+        self._check_revoked()
+        if not getattr(conn, "can_write", True):
+            from ..protocol.messages import Nack, NackErrorType
+
             for op in messages:
                 self.pubsub.publish(
                     f"nack/{conn.tenant_id}/{conn.document_id}/"
                     f"{conn.client_id}",
                     Nack(operation=op, sequence_number=-1, code=403,
                          type=NackErrorType.INVALID_SCOPE,
-                         message="read-only session cannot submit"))
+                         message="token lacks doc:write scope"))
             return
         orderer = self._get_orderer(conn.tenant_id, conn.document_id)
         now = self._clock()
@@ -513,13 +599,16 @@ class LocalServer:
         self._maybe_drain()
 
     def _submit_array(self, conn: ServerConnection, boxcar) -> None:
-        if not conn.can_write:
+        self._check_revoked()
+        if not getattr(conn, "can_write", True):
+            from ..protocol.messages import Nack, NackErrorType
+
             self.pubsub.publish(
                 f"nack/{conn.tenant_id}/{conn.document_id}/"
                 f"{conn.client_id}",
                 Nack(operation=None, sequence_number=-1, code=403,
                      type=NackErrorType.INVALID_SCOPE,
-                     message="read-only session cannot submit"))
+                     message="token lacks doc:write scope"))
             return
         boxcar.tenant_id = conn.tenant_id
         boxcar.document_id = conn.document_id
@@ -536,8 +625,10 @@ class LocalServer:
             f"signal/{conn.tenant_id}/{conn.document_id}", signal)
 
     def _disconnect(self, conn: ServerConnection) -> None:
-        if not conn.can_write:
-            # read connections never joined: nothing to leave
+        if self._revoked or not getattr(conn, "can_write", True):
+            # revoked: the takeover owner expires the client instead
+            # (idle timeout) — this process may not write the log.
+            # read connections never joined: nothing to leave.
             self._unsubscribe_conn(conn)
             return
         orderer = self._get_orderer(conn.tenant_id, conn.document_id)

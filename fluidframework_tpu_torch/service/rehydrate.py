@@ -1,9 +1,9 @@
 """Cold-start rehydration plane: bounded lazy doc boots for a cold core.
 
 JAX counterpart: ``fluidframework_tpu/service/rehydrate.py``; the port's
-copy, imports rebased to this package. The front end imports
-``BootPending`` (its error code); lazy boot itself, which arms the
-executor, waits for the sharded core (ROADMAP A10).
+copy, imports rebased to this package. ``LocalServer.lazy_boot`` and
+``NetworkFrontEnd.enable_boot_admission`` arm it; ``ShardHost`` turns lazy
+boot on for every partition server.
 
 After a full-cluster crash a core inherits a partition space of maybe
 10k docs. Two rules keep recovery O(what's asked for):

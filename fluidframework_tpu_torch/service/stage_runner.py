@@ -54,7 +54,6 @@ import signal
 import time
 from typing import Optional
 
-from ..device import resolve_device
 from ..protocol.messages import MessageType
 from .core import InMemoryDb, summary_versions_collection
 from .durable_log import DurableLog
@@ -331,6 +330,7 @@ class ApplierStage(_StageHostBase):
                  max_docs: int = 64, max_slots: int = 256,
                  ds_id: str = "default", channel_id: str = "text",
                  partition=None, device=None):
+        from ..device import resolve_device
         from .gpu_applier import GpuDocumentApplier, load_applier_checkpoint
 
         # the device is resolved before any log is opened: no card, no

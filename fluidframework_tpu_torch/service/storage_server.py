@@ -1,11 +1,10 @@
 """Standalone storage process: blob/tree/commit/ref RPCs + read cache.
 
 JAX counterpart: ``fluidframework_tpu/service/storage_server.py``; the
-port's copy, imports rebased to this package. The placement table door
-(``--table-dir``, ``--shards``, ``--lease-ttl`` and
-``StorageServer(table_door=...)``, served for the sharded core's
-``table_client``) is not ported: it raises ``NotImplementedError`` naming
-ROADMAP A10.
+port's copy, imports rebased to this package, with the placement table
+door (``--table-dir``, ``--shards``, ``--lease-ttl`` and
+``StorageServer(table_door=...)``) that the sharded core's
+``table_client.RemoteTableClient`` reaches.
 
 Ref: the reference's storage micro-services — gitrest (the object
 store, server/gitrest/src/routes/git) behind historian (the caching
@@ -57,12 +56,6 @@ from .summary_trees import (
 )
 
 CACHE_SIZE = 4096
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"storage server {what} is not ported to fluidframework_tpu_torch "
-        "yet (ROADMAP A10)")
 
 
 class StorageService:
@@ -202,11 +195,14 @@ class StorageService:
 class StorageServer:
     def __init__(self, directory: str, host: str = "127.0.0.1",
                  port: int = 0, table_door=None):
-        if table_door is not None:
-            raise _not_ported("placement table door")
         self.service = StorageService(directory)
         self.host, self.port = host, port
         self._loop: Optional[asyncio.AbstractEventLoop] = None
+        # placement table door (service/table_client.TableDoorService):
+        # when set, ``admin_table_*`` frames are served on THIS socket —
+        # the placement host's flock keeps serializing every table
+        # write, remote host groups just reach it over the wire
+        self.table_door = table_door
 
     async def _handle_conn(self, reader, writer) -> None:
         try:
@@ -217,7 +213,11 @@ class StorageServer:
                 frame = json.loads(body.decode())
                 rid = frame.get("rid")
                 try:
-                    reply = self.service.handle(frame)
+                    if self.table_door is not None and str(
+                            frame.get("t", "")).startswith("admin_table_"):
+                        reply = self.table_door.handle(frame)
+                    else:
+                        reply = self.service.handle(frame)
                 except Exception as e:  # noqa: BLE001 — reply, don't die
                     reply = {"t": "error", "message": str(e)}
                 reply["rid"] = rid
@@ -270,21 +270,24 @@ def main() -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--table-dir", default=None,
-                   help="serve the placement table door (not ported, "
-                        "ROADMAP A10)")
+                   help="serve the placement table door (admin_table_*) "
+                        "over this shard dir's flocked lease/epoch files")
     p.add_argument("--shards", type=int, default=0,
-                   help="partition count for the table door (not ported, "
-                        "ROADMAP A10)")
+                   help="partition count for the table door")
     p.add_argument("--lease-ttl", type=float, default=None,
-                   help="lease TTL for the table door (not ported, "
-                        "ROADMAP A10)")
+                   help="lease TTL for the table door's PlacementDir")
     args = p.parse_args()
-    for flag, given in (("--table-dir", args.table_dir is not None),
-                        ("--shards", args.shards != 0),
-                        ("--lease-ttl", args.lease_ttl is not None)):
-        if given:
-            raise _not_ported(f"option {flag}")
-    StorageServer(args.dir, host=args.host, port=args.port).serve_forever()
+    door = None
+    if args.table_dir:
+        from .placement import DEFAULT_TTL_S
+        from .table_client import TableDoorService
+
+        door = TableDoorService(
+            args.table_dir, args.shards,
+            ttl_s=(args.lease_ttl if args.lease_ttl is not None
+                   else DEFAULT_TTL_S))
+    StorageServer(args.dir, host=args.host, port=args.port,
+                  table_door=door).serve_forever()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ port; the quick phase-A soak and its two self-tests with the device
 stage's applier on the CPU; and the port's seed-0 quick soak against the
 JAX package's: the same coverage, observed and redelivered counts, chaos
 counters and final fingerprints of every replica, exactly, with the
-stage's farm dense and over a 2-shard mesh.
+stage's farm dense and over a 2-shard mesh. The port's quick
+``chaos.rebalance`` campaign at seed 0 (hotspot storm, flap bait, kill -9
+auto-heal) against the JAX package's: the same verdict, counters and
+fingerprints.
 """
 
 import json
@@ -411,6 +414,39 @@ def test_soak_mesh_equals_jax(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
         run_soak(seed=0, quick=True, mesh_shards=2)
+
+
+def _rebalance(pkg: str, seed: int, monkeypatch) -> dict:
+    """One quick ``chaos.rebalance`` campaign of ``pkg``, with the
+    fingerprints its monitors gate on at quiescence."""
+    from importlib import import_module
+
+    root = {"jax": "fluidframework_tpu",
+            "torch": "fluidframework_tpu_torch"}[pkg]
+    monitor = import_module(root + ".chaos.monitor")
+    campaign = import_module(root + ".chaos.rebalance")
+    counters = import_module(root + ".utils.telemetry").Counters
+    fps = []
+    gate = monitor.InvariantMonitor.check_quiescent
+
+    def capture(self, fingerprints):
+        fps.append(dict(fingerprints))
+        return gate(self, fingerprints)
+
+    monkeypatch.setattr(monitor.InvariantMonitor, "check_quiescent",
+                        capture)
+    out = campaign.run_campaign(seed, counters(), quick=True)
+    out["fingerprints"] = fps
+    return out
+
+
+def test_rebalance_campaign_quick_equals_jax(monkeypatch):
+    got = _rebalance("torch", 0, monkeypatch)
+    assert got == _rebalance("jax", 0, monkeypatch)
+    assert got["placement"]["placement.migration.committed"] >= 1
+    assert got["placement"].get("placement.rebalance.flaps", 0) == 0
+    assert got["fingerprints"]
+    assert all(len(set(f.values())) == 1 for f in got["fingerprints"])
 
 
 @pytest.mark.slow

@@ -8,8 +8,9 @@ it, two native (the default: g++ builds ``csrc/gateway.cpp`` into
 The twins of the JAX topology tests run on it (not the example demos,
 which run the JAX package's examples, and not the secured topology, whose
 tenancy is ROADMAP A10), plus a JAX client through the port's native
-relay, the native relay's library, and the refusals: no fallback to the
-Python relay, and the sharded routing options raise.
+relay, the native relay's library, the refusal to fall back to the
+Python relay, and the sharded routing options, which take the Python
+relay as in the JAX package.
 """
 
 from __future__ import annotations
@@ -307,18 +308,50 @@ def test_native_build_failure_raises_without_fallback(monkeypatch):
         gateway.main()
 
 
-@pytest.mark.parametrize("flag", [["--shard-dir", "x"],
-                                  ["--shards", "2"],
-                                  ["--host-id", "h0"],
-                                  ["--table-server", "h:1"],
-                                  ["--upstream-gateway", "h:1"]])
-def test_unported_gateway_options_raise(monkeypatch, flag):
+@pytest.mark.parametrize("flag,relay", [(["--shard-dir", "x"], "python"),
+                                        (["--shards", "2"], "native"),
+                                        (["--host-id", "h0"], "native"),
+                                        (["--table-server", "h:1"],
+                                         "python"),
+                                        (["--upstream-gateway", "h:1"],
+                                         "python")])
+def test_unported_gateway_options_raise(monkeypatch, tmp_path, flag, relay):
+    """The sharded routing options now work: ``--shard-dir`` and
+    ``--table-server`` route each doc to its partition's lease holder on
+    the asyncio relay, ``--upstream-gateway`` stacks on it, as in the JAX
+    package; without them the native relay runs. ``Gateway(shard_dir=)``
+    builds the routing cache."""
+    from fluidframework_tpu_torch.native import gateway as native_gateway
     from fluidframework_tpu_torch.service import gateway
 
+    monkeypatch.chdir(tmp_path)  # the shard dir "x" is relative
+    ran = []
+
+    class FakeNative:
+        port = 9
+
+        def __init__(self, core_host, core_port, host, port):
+            ran.append(("native", core_host, core_port))
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(native_gateway, "NativeGateway", FakeNative)
+    monkeypatch.setattr(gateway.Gateway, "serve_forever",
+                        lambda self: ran.append(("python", self)))
     monkeypatch.setattr(sys, "argv", ["gateway", "--core-port", "1", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    if relay == "native":
+        with pytest.raises(SystemExit) as done:
+            gateway.main()
+        assert done.value.code == 0
+    else:
         gateway.main()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        gateway.Gateway("127.0.0.1", 1, shard_dir="x", shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        gateway.Gateway("127.0.0.1", 1, shards=2)
+    assert [r[0] for r in ran] == [relay]
+    if flag[0] in ("--shard-dir", "--table-server"):
+        assert ran[0][1].routing is not None
+        assert ran[0][1].placement.n == 0
+    if flag[0] == "--upstream-gateway":
+        assert (ran[0][1].core_host, ran[0][1].core_port) == ("h", 1)
+    routed = gateway.Gateway("127.0.0.1", 1, shard_dir="x", shards=2)
+    assert routed.routing is not None and routed.placement.n == 2
+    assert gateway.Gateway("127.0.0.1", 1, shards=2).routing is None

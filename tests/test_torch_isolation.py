@@ -91,6 +91,44 @@ STORAGE = ("native/chunkstore.py", "native/__init__.py",
            "service/stage_runner.py")
 
 
+#: the sharded ordering core: tenants, the placement plane, the partition
+#: runtime, the rebalancer, the topology spec, their two chaos campaigns,
+#: and the modules that gained its hooks
+SHARDED = ("service/tenants.py", "service/placement.py",
+           "service/placement_plane.py", "service/table_client.py",
+           "service/partitions.py", "service/rebalancer.py",
+           "service/topology.py", "chaos/migrate.py", "chaos/rebalance.py",
+           "service/deli.py", "service/local_orderer.py",
+           "service/local_server.py", "service/front_end.py",
+           "service/gateway.py", "service/storage_server.py")
+
+
+def test_sources_cover_the_sharded_core():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(SHARDED)
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
+def test_sharded_core_spawns_the_ports_modules(tmp_path):
+    """The fleet launcher's command lines name the port's modules."""
+    from fluidframework_tpu_torch.service.topology import (
+        GatewaySpec,
+        default_spec,
+        multihost_spec,
+    )
+
+    spec = default_spec(str(tmp_path / "f"), n_cores=2, n_partitions=2)
+    spec.gateways = [GatewaySpec(name="g")]
+    argv = [spec.core_argv(0, "s.json"), spec.gateway_argv(0, {0: 1}, {})]
+    multi = multihost_spec(str(tmp_path / "m"), 2, 1, 2)
+    multi.table_server = "h:1"
+    argv += [multi.gateway_argv(i, {0: 1, 1: 2}, {})
+             for i in range(len(multi.gateways))]
+    modules = {a[a.index("-m") + 1] for a in argv}
+    assert modules == {"fluidframework_tpu_torch.service.front_end",
+                       "fluidframework_tpu_torch.service.gateway"}
+
+
 def test_sources_cover_the_storage_tier():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(STORAGE)

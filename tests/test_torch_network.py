@@ -543,34 +543,78 @@ def test_scripted_streams_equal_jax():
 
 
 @pytest.mark.parametrize("flag,item", [
-    # the storage tier's flags work alone; beside a sharded core (whose
-    # partition host takes the storage server) they still refuse
-    (["--storage-server", "1", "--shard-dir", "x"], "A10"),
-    (["--external-scribe", "--shards", "2"], "A10"),
-    (["--storage-dir", "x", "--prefer", "0"], "A10"),
-    (["--tenant", "a:b"], "A10"),
+    # the sharded core's flags now work (alone or beside the storage
+    # tier's): main() builds the core and serves it; the overload and
+    # health plane still refuses, naming its ROADMAP item
+    (["--storage-server", "1", "--shard-dir", "x"], "sharded"),
+    (["--external-scribe", "--shards", "2"], "single"),
+    (["--storage-dir", "x", "--prefer", "0"], "single"),
+    (["--tenant", "a:b"], "single"),
     (["--tenant-rate", "a:5"], "A10"), (["--slo", "x"], "A10"),
-    (["--probe"], "A10"), (["--shard-dir", "x"], "A10"),
-    (["--topology", "x"], "A10"), (["--rebalance"], "A10"),
-    (["--shards", "2"], "A10"), (["--prefer", "0"], "A10"),
-    (["--lease-ttl", "5"], "A10"), (["--no-shed"], "A10")])
-def test_unported_front_end_options_raise(monkeypatch, flag, item):
+    (["--probe"], "A10"), (["--shard-dir", "x"], "sharded"),
+    (["--topology", "spec.json"], "sharded"), (["--rebalance"], "refused"),
+    (["--shards", "2"], "single"), (["--prefer", "0"], "single"),
+    (["--lease-ttl", "5"], "single"), (["--no-shed"], "A10")])
+def test_unported_front_end_options_raise(monkeypatch, tmp_path, flag,
+                                          item):
+    """Each flag of ``main()``: the overload and health plane raises
+    ``NotImplementedError`` naming A10; the sharded core's flags build a
+    sharded core (``--rebalance`` without a shard dir is refused, as in
+    the JAX package); the others serve the single pipeline."""
+    import gc
+
+    from fluidframework_tpu_torch.obs import reset_journal
     from fluidframework_tpu_torch.service import front_end
+    from fluidframework_tpu_torch.service.topology import default_spec
 
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(gc, "disable", lambda: None)
+    monkeypatch.setattr(gc, "freeze", lambda: None)
+    default_spec(str(tmp_path / "fleet"), n_cores=1, n_partitions=2,
+                 storage_dir=None).save("spec.json")
+    served = []
+    monkeypatch.setattr(front_end.NetworkFrontEnd, "serve_forever",
+                        lambda self: served.append(self))
     monkeypatch.setattr(sys, "argv", ["front_end", "--port", "0", *flag])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        front_end.main()
+    try:
+        if item == "A10":
+            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+                front_end.main()
+        elif item == "refused":
+            with pytest.raises(SystemExit):
+                front_end.main()
+        else:
+            front_end.main()
+    finally:
+        reset_journal()
+    if item in ("A10", "refused"):
+        assert not served
+        return
+    (front,) = served
+    assert (front.shard_host is not None) == (item == "sharded")
+    if flag == ["--tenant", "a:b"]:
+        assert front.server.tenants.list_tenants() == ["a"]
 
 
-def test_unported_front_end_planes_raise():
+def test_unported_front_end_planes_raise(tmp_path):
+    """The overload and health plane still raises; boot admission and
+    the rebalancer are the JAX package's (the rebalancer needs a sharded
+    core), and ``NetworkFrontEnd(shard_host=)`` serves the sharded core.
+    """
+    from fluidframework_tpu_torch.service.front_end import ShardHost
+
     fe = NetworkFrontEnd(LocalServer())
     for call in (fe.enable_admission, fe.enable_health,
-                 fe.enable_rebalancer, fe.enable_boot_admission,
                  lambda: fe.attach_slo(None)):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        NetworkFrontEnd(shard_host=object())
+    with pytest.raises(ValueError, match="requires a sharded core"):
+        fe.enable_rebalancer()
+    assert fe.enable_boot_admission() is fe
+    assert fe.server.rehydrator is not None
+    sharded = NetworkFrontEnd(shard_host=ShardHost(str(tmp_path), 2))
+    assert sharded.enable_rebalancer()._rebalance_cfg["budget"] == 2
+    assert sharded.migration_engine is not None
 
 
 # ------------------------------------------------ the socket load

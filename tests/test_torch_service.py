@@ -145,24 +145,55 @@ def test_channel_stream_replays_the_doc():
         live.get_text("bench", "doc0") != ""
 
 
-@pytest.mark.parametrize("kwargs, item", [(dict(tenants=object()), "A10")])
+@pytest.mark.parametrize("kwargs, item", [(dict(tenants=True), "tenants")])
 def test_unported_server_options_refuse(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
-        LocalServer(**kwargs)
+    """``tenants`` is ported: with a registry, connect validates tokens
+    riddler-style before touching any document state."""
+    from fluidframework_tpu_torch.service.tenants import (
+        AuthError,
+        TenantManager,
+        sign_token,
+    )
+
+    tm = TenantManager()
+    tm.register("acme", "s3cret")
+    server = LocalServer(**{item: tm if kwargs[item] else None})
+    with pytest.raises(AuthError):
+        server.connect("acme", "doc")
+    assert not server._orderers
+    conn = server.connect("acme", "doc",
+                          token=sign_token("acme", "doc", "s3cret"))
+    assert conn.mode == "write"
 
 
 def test_unported_server_planes_refuse():
-    """The sharded core's planes refuse, naming their ROADMAP item; the
-    history plane is the JAX package's, built on first use."""
+    """The sharded core's hooks are the JAX package's: lazy boot (a first
+    route of a doc with no log counts ``fresh``), the rehydrator (asked
+    to admit each cold first route) and the epoch fence (consulted on
+    every record); the history plane is built on first use."""
     from fluidframework_tpu_torch.service.history_plane import HistoryPlane
+    from fluidframework_tpu_torch.service.rehydrate import (
+        RehydrationExecutor,
+    )
 
     server = LocalServer()
     assert isinstance(server.history, HistoryPlane)
     assert server.history is server.history
-    for name, value in (("lazy_boot", True), ("rehydrator", object()),
-                        ("epoch_fence", lambda: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            setattr(server, name, value)
+    fenced = []
+    server.lazy_boot = True
+    server.rehydrator = RehydrationExecutor(100.0, 4)
+    server.epoch_fence = lambda: fenced.append(1)
+    conn = server.connect("t", "d")
+    assert server._orderers["t/d"].boot_mode == "fresh"
+    assert server.rehydrator.booted == 1
+    assert fenced and conn.client_id
+    server.seal()
+    with pytest.raises(RuntimeError, match="sealed"):
+        server.connect("t", "d")
+    server.unseal()
+    server.revoke()
+    with pytest.raises(RuntimeError, match="lease lost"):
+        server.connect("t", "d")
 
 
 def _unreadable_log(log_cls, prefix: str):

@@ -10,7 +10,7 @@ other's directories; the same RPC frames into a JAX and a port
 ``StorageService`` give identical replies (content-addressed ids, commit
 ids, refs, histories, trees; stats but the read cache's hit counts);
 the golden round-3 session boots in the port to ``expected.json``. The
-placement table door raises ``NotImplementedError`` naming ROADMAP A10.
+placement table door (``--table-dir``) arms on the storage socket.
 """
 
 from __future__ import annotations
@@ -405,15 +405,30 @@ def test_fork_over_storage_server_is_refused(tmp_path):
 @pytest.mark.parametrize("flag", [["--table-dir", "x"], ["--shards", "2"],
                                   ["--lease-ttl", "5"]])
 def test_table_door_options_raise(monkeypatch, tmp_path, flag):
+    """The placement table door is ported: ``--table-dir`` arms it on
+    the storage socket (``--shards`` and ``--lease-ttl`` size it), and a
+    door answers ``admin_table_*`` frames over the flock'd table."""
     from fluidframework_tpu_torch.service import storage_server as mod
+    from fluidframework_tpu_torch.service.table_client import (
+        TableDoorService,
+    )
 
+    served = []
+    monkeypatch.chdir(tmp_path)  # the table dir "x" is relative
+    monkeypatch.setattr(mod.StorageServer, "serve_forever",
+                        lambda self: served.append(self))
     monkeypatch.setattr(sys, "argv", ["storage_server", "--dir",
                                       str(tmp_path / "s"), *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        mod.main()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        StorageServer(str(tmp_path / "s"), table_door=object())
-    assert not (tmp_path / "s").exists()
+    mod.main()
+    (server,) = served
+    assert (server.table_door is not None) == (flag[0] == "--table-dir")
+    server.service.close()
+    door = TableDoorService(str(tmp_path / "shard"), 2, ttl_s=5.0)
+    reply = door.handle({"t": "admin_table_read", "rid": 1})
+    assert reply["rec"]["epoch"] == 0
+    server = StorageServer(str(tmp_path / "s2"), table_door=door)
+    assert server.table_door is door
+    server.service.close()
 
 
 # ------------------------------------------------- the golden session
