@@ -64,6 +64,16 @@ under the socket load at 0.4 Hz and 8 real containers that summarize:
 the scribe process acks, the refs advance in the storage process and
 survive its restart, and both stages reach their tails with farms equal
 to a CPU applier's.
+Then the overload, health and recovery plane: ``overload`` runs a core
+with a rated flood tenant, the SLO engine and the canary prober
+(``--tenant-rate --slo --probe``) beside the applier stage child on the
+card, the steady tenant's socket load in three windows and, ten seconds
+into the second, 8 driver clients flooding at ten times their budget; it
+checks health ``ok`` before and after, the flood tenant's SLO going from
+ok to violated during the flood, sheds on the flood tenant only, every op of both tenants acked, the farm
+against a CPU applier fed the whole log and every doc's log through the
+invariant monitor. ``campaigns`` runs ``chaos.noisy``, ``coldstart``,
+``multihost`` and soak phase B in full at seed 0.
 Each phase prints one JSON line (the last one, each phase's seconds); any
 failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
@@ -73,6 +83,7 @@ limit as ``nvidia-smi`` reports them; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -1533,7 +1544,7 @@ def phase_mesh(power: str, device: str = "cuda"):
     stage on a 2-shard mesh. Returns B1's launches on the mesh run and
     the mesh soak."""
     from fluidframework_tpu_torch.chaos.soak import (
-        BOUNDARY_REQUIRED,
+        PHASE_A_REQUIRED,
         run_soak,
     )
     from fluidframework_tpu_torch.ops import cuda_apply
@@ -1633,7 +1644,7 @@ def phase_mesh(power: str, device: str = "cuda"):
     out = run_soak(0, quick=True, phases="a", mesh_shards=2, device=device)
     soak_seconds = time.perf_counter() - t0
     soak_launches = cuda_apply.LAUNCHES
-    missing = set(BOUNDARY_REQUIRED) - set(out["coverage"])
+    missing = set(PHASE_A_REQUIRED) - set(out["coverage"])
     if missing or soak_launches == 0:
         fail(f"mesh soak: classes {sorted(missing)} not covered, "
              f"{soak_launches} kernel launches")
@@ -1838,7 +1849,7 @@ def phase_soak(power: str, device: str = "cuda"):
     (``run_soak`` raises otherwise), and launch B1. Returns B1's
     launches over the three runs."""
     from fluidframework_tpu_torch.chaos.soak import (
-        BOUNDARY_REQUIRED,
+        PHASE_A_REQUIRED,
         run_soak,
     )
     from fluidframework_tpu_torch.ops import cuda_apply
@@ -1852,7 +1863,7 @@ def phase_soak(power: str, device: str = "cuda"):
         out = run_soak(seed, quick=True, phases="a", device=device)
         seconds = time.perf_counter() - t0
         launches = cuda_apply.LAUNCHES
-        missing = set(BOUNDARY_REQUIRED) - set(out["coverage"])
+        missing = set(PHASE_A_REQUIRED) - set(out["coverage"])
         if missing or launches == 0:
             fail(f"soak seed {seed}: classes {sorted(missing)} not "
                  f"covered, {launches} kernel launches")
@@ -1960,11 +1971,11 @@ def _pct(vals: list, p: float) -> float:
     return vals[int(p * (len(vals) - 1))] if vals else 0.0
 
 
-def _network_statuses(rpc, docs: list) -> dict:
+def _network_statuses(rpc, docs: list, tenant: str = "bench") -> dict:
     """doc → (seq at the core, applierSeq) from the core's status RPC."""
     out = {}
     for doc in docs:
-        st = rpc.request({"t": "admin_status", "tenant": "bench",
+        st = rpc.request({"t": "admin_status", "tenant": tenant,
                           "doc": doc})["status"]
         out[doc] = (st["seq"], st["applierSeq"])
     return out
@@ -1997,7 +2008,8 @@ def _cpu_seconds(pid: int) -> float:
 
 
 def _run_load(run: dict, ports: list, prefix: str, servers: dict,
-              procs: list, err_path: str, phase: str, during=None):
+              procs: list, err_path: str, phase: str, during=None,
+              trace_sample_n: int = 16):
     """``run["workers"]`` ``load_async`` workers (worker ``w`` on
     ``ports[w]``, docs ``<prefix><w>d<k>``) behind the start barrier: each
     connects all its clients and prints ``CONNECTED``; only then is one
@@ -2007,7 +2019,8 @@ def _run_load(run: dict, ports: list, prefix: str, servers: dict,
     (the row's load fields, the last ack's wall time); the first two
     workers' latencies are the gateway's, the others direct. Appends the
     workers to ``procs``; ``servers`` names the pids whose CPU seconds over
-    the load window the row reports."""
+    the load window the row reports. Each client samples every
+    ``trace_sample_n``-th boxcar's hops (the workers' default, 16)."""
     t0 = time.perf_counter()
     workers = []
     for w in range(run["workers"]):
@@ -2021,6 +2034,7 @@ def _run_load(run: dict, ports: list, prefix: str, servers: dict,
              "--batch", str(run["batch"]),
              "--rate", str(run["rate"]), "--seed", str(w),
              "--start-gate", "--timeout", "180",
+             "--trace-sample-n", str(trace_sample_n),
              "--doc-prefix", f"{prefix}{w}d"],
             cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=open(err_path, "a"), text=True)
@@ -2077,6 +2091,7 @@ def _run_load(run: dict, ports: list, prefix: str, servers: dict,
     row.update(
         ops=ops, seconds=seconds, ops_per_sec=ops / seconds,
         late_s=late_s, tainted=late_s > 0,
+        shed=sum(r["shed"] for r in results),
         p50_ack_ms=_pct(lat, 0.50), p99_ack_ms=_pct(lat, 0.99),
         direct_p50_ack_ms=_pct(direct_lat, 0.50),
         direct_p99_ack_ms=_pct(direct_lat, 0.99),
@@ -2903,7 +2918,8 @@ def _journal_seal_to_flip_ms(shard: str, epoch: int):
     return (bump[0] - max(seal)) * 1e3
 
 
-def _replay_log(log_dir: str, docs: list) -> dict:
+def _replay_log(log_dir: str, docs: list, tenant: str = "bench",
+                phase: str = "sharded") -> dict:
     """Each doc's deltas topic of one partition log through the port's
     ``InvariantMonitor`` (no seq gap, no duplicate join or clientSeq, msn
     monotone); re-ticketed seqs must carry the same message. Returns
@@ -2916,7 +2932,7 @@ def _replay_log(log_dir: str, docs: list) -> dict:
     out = {"observed": 0, "redelivered": 0, "last": {}}
     try:
         for doc in docs:
-            topic = f"deltas/bench/{doc}"
+            topic = f"deltas/{tenant}/{doc}"
             monitor = InvariantMonitor(Counters())
             seen: dict = {}
             for i in range(log.refresh_topic(topic)):
@@ -2928,14 +2944,14 @@ def _replay_log(log_dir: str, docs: list) -> dict:
                            str(m.type), json.dumps(m.contents,
                                                    sort_keys=True))
                     if seen.setdefault(m.sequence_number, key) != key:
-                        fail(f"sharded: {log_dir} re-ticketed seq "
+                        fail(f"{phase}: {log_dir} re-ticketed seq "
                              f"{m.sequence_number} of {doc} with another "
                              "message")
                     monitor.observe(m)
             try:
                 monitor.check()
             except AssertionError as e:
-                fail(f"sharded: {doc} in {log_dir}: {e}")
+                fail(f"{phase}: {doc} in {log_dir}: {e}")
             out["observed"] += monitor.observed
             out["redelivered"] += monitor.redelivered
             out["last"][doc] = monitor.last_seq
@@ -3307,6 +3323,522 @@ def phase_sharded(power: str, device: str = "cuda"):
     emit(row)
 
 
+#: the overload phase's steady tenant ``bench`` (no configured rate: it
+#: is never shed): the sharded phase's width at 0.2 Hz a client (4,838
+#: ops/s offered), in three windows of rounds: before the flood, during
+#: it and after its drain, every boxcar's hops sampled (the SLO reads
+#: them: with one in 16, a client's samples came in its first round only
+#: and the window emptied between rounds). 252 docs a worker, not 256:
+#: the stage's farm holds 1024 docs, and the flood's 8 docs and the
+#: canary's doc ride it too (a farm past its rows raises "all shards
+#: full")
+OVERLOAD_RUN = dict(workers=4, docs_per_worker=252, clients_per_doc=2,
+                    rounds=2, batch=12, rate=0.2)
+OVERLOAD_WINDOWS = {"before": 2, "during": 4, "after": 1}
+#: the flood tenant: clients of the port's driver stack, one doc each,
+#: submitting ``ops`` in all in boxcars of ``batch`` at ``rate`` ops/s in
+#: all, ten times the budget (the shape of ``chaos/noisy.py``), over two
+#: seconds, starting ``OVERLOAD_FLOOD_AFTER_S`` into the steady load's
+#: second window
+OVERLOAD_FLOOD = dict(clients=8, ops=8000, batch=20, rate=4000.0)
+OVERLOAD_FLOOD_AFTER_S = 10.0
+#: the core's flags: the flood's budget is ``chaos/noisy.py``'s CAP (400
+#: ops/s, burst 400); ``ingest`` is the example of ``obs/slo.py``'s
+#: docstring, which the steady load alone burns (its bursts' p99 is past
+#: 25 ms), so its state cannot tell the flood; ``flood_ingest``, the
+#: same budget scoped to the flood tenant, has no sample before the flood
+#: and burns only on the flood's own admitted boxcars; the canary probes
+#: every 2 s
+OVERLOAD_SLOS = ("ingest=submit_to_admit:25:5:2",
+                 "flood_ingest=submit_to_admit@flood:25:5:2")
+OVERLOAD_CORE_FLAGS = ["--tenant-rate", "flood:400:400",
+                       *(f for slo in OVERLOAD_SLOS for f in ("--slo", slo)),
+                       "--probe", "--probe-tick", "2"]
+
+
+class _Flood:
+    """The flood tenant: clients of the port's driver stack
+    (``NetworkDocumentServiceFactory``, so their shed ops ride the
+    driver's shed-retry lane), one doc each, every boxcar sampled for the
+    hop windows. ``start()`` submits every client's share from one
+    thread, one boxcar a client at a time at ``rate`` ops/s in all (or
+    as fast as the driver takes them, if slower): one insert of a word, then
+    annotates of that word, so the backlog adds no slots to a doc (a
+    doc's 256 slots would not hold 1000 inserts whose refSeq cannot
+    advance while they wait). Counts acks (own sequenced ops) and hard
+    nacks (a shed nack is the driver's, not the app's)."""
+
+    def __init__(self, port: int, clients: int, ops: int, batch: int,
+                 rate: float):
+        from fluidframework_tpu_torch.driver.network import (
+            NetworkDocumentServiceFactory,
+        )
+
+        self.factory = NetworkDocumentServiceFactory("127.0.0.1", port)
+        self.docs = [f"flood{i}" for i in range(clients)]
+        self.per_client, self.batch = ops // clients, batch
+        self.round_s = batch * clients / rate
+        self.conns, self.acked, self.hard = [], [0] * clients, []
+        self.last_ack = None
+        for i, doc in enumerate(self.docs):
+            conn = self.factory.create_document_service(
+                "flood", doc).connect_to_delta_stream()
+            conn.trace_sample_n = 1
+            conn.on_op = lambda m, i=i, me=conn.client_id: (
+                m.client_id == me and self._ack(i))
+            conn.on_nack = lambda n, i=i: self.hard.append(
+                (i, f"{n.code} {n.message}"))
+            self.conns.append(conn)
+
+    def _ack(self, i: int) -> None:
+        self.acked[i] += 1
+        self.last_ack = time.time()
+
+    def _boxcar(self, first: int) -> list:
+        from fluidframework_tpu_torch.mergetree.ops import (
+            AnnotateOp,
+            InsertOp,
+            op_to_wire,
+        )
+        from fluidframework_tpu_torch.protocol.messages import (
+            DocumentMessage,
+            MessageType,
+        )
+
+        ops = []
+        for cseq in range(first, first + self.batch):
+            op = (InsertOp(pos=0, text="flood") if cseq == 1 else
+                  AnnotateOp(start=0, end=5, props={"flood": cseq % 4}))
+            ops.append(DocumentMessage(
+                client_sequence_number=cseq, reference_sequence_number=0,
+                type=MessageType.OPERATION,
+                contents={"kind": "chanop", "address": "default",
+                          "contents": {"address": "text",
+                                       "contents": op_to_wire(op)}}))
+        return ops
+
+    def start(self, delay: float) -> float:
+        """Submit everything from ``delay`` seconds on; returns the
+        seconds the submits took."""
+        time.sleep(delay)
+        self.started = time.time()
+        for k, first in enumerate(range(1, self.per_client + 1,
+                                        self.batch)):
+            delay = self.started + k * self.round_s - time.time()
+            if delay > 0:
+                time.sleep(delay)
+            for conn in self.conns:
+                conn.submit(self._boxcar(first))
+        self.submit_seconds = time.time() - self.started
+        return self.submit_seconds
+
+    @property
+    def total(self) -> int:
+        return self.per_client * len(self.conns)
+
+    def drained(self) -> bool:
+        return sum(self.acked) >= self.total
+
+    def shed_retries(self) -> int:
+        return self.factory.counters.snapshot().get(
+            "driver.submit.shed_retries", 0)
+
+    def report(self) -> str:
+        """What a failed check prints: acks, the driver's shed retries
+        and the hard nacks."""
+        return (f"acked {sum(self.acked)} of {self.total} "
+                f"(by client {self.acked}), driver.submit.shed_retries "
+                f"{self.shed_retries()}, hard nacks {self.hard[:8]}")
+
+    def close(self) -> None:
+        for conn in self.conns:
+            conn.close()
+
+
+class _OverloadWatch:
+    """Polls the core's SLO status (every 0.25 s) and health verdict
+    (every 1 s) on a thread of its own transport: each SLO's states and
+    every health verdict it saw change, with its second since ``t0``."""
+
+    def __init__(self, port: int, t0: float):
+        from fluidframework_tpu_torch.driver.network import _Transport
+
+        self.rpc = _Transport("127.0.0.1", port, timeout=60.0)
+        self.t0 = t0
+        self.slo: dict = {}
+        self.health: list = []
+        self.error: list = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        n = 0
+        try:
+            while not self.stop.wait(0.25):
+                t = time.time() - self.t0
+                for row in self.rpc.request(
+                        {"t": "admin_slo_status"})["slos"]:
+                    seen = self.slo.setdefault(row["slo"], [])
+                    if not seen or seen[-1]["state"] != row["state"]:
+                        seen.append({"t": round(t, 3), "state": row["state"],
+                                     "p99_ms": row["p99_ms"],
+                                     "count": row["count"]})
+                n += 1
+                if n % 4 == 0:
+                    v = self.rpc.request({"t": "admin_health"})[
+                        "health"]["verdict"]
+                    if not self.health or self.health[-1]["verdict"] != v:
+                        self.health.append({"t": round(t, 3), "verdict": v})
+        except Exception as e:  # noqa: BLE001 — reported by join()
+            self.error.append(repr(e))
+
+    def join(self) -> None:
+        self.stop.set()
+        self.thread.join(60)
+        self.rpc.close()
+        if self.error:
+            fail(f"overload: the SLO and health watch failed: {self.error}")
+
+
+def _wait_health_ok(rpc, what: str) -> dict:
+    """The core's ``admin_health`` once it answers ``ok`` with a canary
+    door probed ok; fails the phase after ``CHILD_TIMEOUT_S``."""
+    deadline = time.time() + CHILD_TIMEOUT_S
+    while True:
+        health = rpc.request({"t": "admin_health"})["health"]
+        doors = (health.get("probes") or {}).get("doors") or {}
+        if health["verdict"] == "ok" and any(
+                d["ok"] and d["probes"] for d in doors.values()):
+            return health
+        if time.time() > deadline:
+            fail(f"overload: {what}: admin_health never answered ok with a "
+                 f"door probed ok ({json.dumps(health)[:600]})")
+        time.sleep(0.5)
+
+
+def _stop_all(procs: list) -> None:
+    """Terminate every child still running (then kill it after 30 s)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+@contextlib.contextmanager
+def _children(procs: list):
+    """Stops the children in ``procs`` on leaving the block."""
+    try:
+        yield procs
+    finally:
+        _stop_all(procs)
+
+
+def phase_overload(power: str, device: str = "cuda"):
+    """The overload, health and recovery plane over the card's applier
+    stage: the core (``front_end --log-dir L --consume-backchannel S``
+    with ``OVERLOAD_CORE_FLAGS``: a rated flood tenant, the SLO engine,
+    the canary prober and the health engine) and the stage child on the
+    card (D=1024, S=256). The steady tenant's ``load_async`` workers run
+    three windows; the flood's driver clients start ten seconds into the
+    second and drain through the shed-retry lane. Checks: health ``ok`` (a
+    door probed ok) before the load and again after the drain; the flood
+    tenant's SLO ok when the flood starts and violated before it has
+    drained, its ``obs.slo.violations`` counted; sheds
+    labelled with the flood tenant only, the flood's driver retried and
+    the steady workers were never shed; every op of both tenants acked,
+    no hard nack; every doc's ``applierSeq`` at its seq; the stage's farm
+    (loaded on the card) escalated nothing and equals a CPU applier fed
+    the whole log, flood and canary docs included; every doc's log
+    replays through the invariant monitor (no clientSeq gap or
+    duplicate: a retried shed op landed once) and the stage's
+    ``applied`` records reach every doc's last seq. The stage child's
+    launches are its own: returns 0."""
+    from fluidframework_tpu_torch.driver.network import _Transport
+    from fluidframework_tpu_torch.obs import parse_prometheus
+    from fluidframework_tpu_torch.obs.probe import CANARY_DOC, CANARY_TENANT
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+    from fluidframework_tpu_torch.service.stage_runner import ApplierStage
+
+    run = OVERLOAD_RUN
+    bench = [f"ovl{w}d{d}" for w in range(run["workers"])
+             for d in range(run["docs_per_worker"])]
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    err_path = os.path.join(out_dir, "overload_stderr.txt")
+    open(err_path, "w").close()
+    procs, flood, watch, rpc = [], None, None, None
+    row = {"phase": "overload", "docs": len(bench), **run,
+           "windows": OVERLOAD_WINDOWS, "flood": dict(OVERLOAD_FLOOD),
+           "core_flags": OVERLOAD_CORE_FLAGS}
+    t_phase = time.perf_counter()
+    try:
+        # the children write into the scratch dir: they stop first
+        with _scratch_dir() as tmp, _children(procs):
+            log_dir, state_dir = (os.path.join(tmp, "log"),
+                                  os.path.join(tmp, "state"))
+            stage, _ = _spawn_ready(
+                ["fluidframework_tpu_torch.service.stage_runner", "--stage",
+                 "applier", "--log-dir", log_dir, "--state-dir", state_dir,
+                 "--device", device,
+                 "--max-docs", str(SERVICE_GEO["max_docs"]),
+                 "--max-slots", str(SERVICE_GEO["max_slots"])],
+                "READY", err_path, "overload: the applier stage")
+            procs.append(stage)
+            core, line = _spawn_ready(
+                ["fluidframework_tpu_torch.service.front_end", "--port", "0",
+                 "--log-dir", log_dir, "--consume-backchannel", state_dir,
+                 *OVERLOAD_CORE_FLAGS],
+                "LISTENING", err_path, "overload: the core")
+            procs.append(core)
+            port = int(line.rsplit(":", 1)[1])
+            servers = {"core": core.pid, "stage": stage.pid}
+            cpu0 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+            rpc = _Transport("127.0.0.1", port, timeout=60.0)
+            t0 = time.time()
+            health = _wait_health_ok(rpc, "before the load")
+            row["health_before"] = {
+                "seconds": time.time() - t0,
+                "doors": {k: {"ok": d["ok"], "probes": d["probes"]}
+                          for k, d in health["probes"]["doors"].items()}}
+            watch = _OverloadWatch(port, time.time())
+
+            windows = {}
+            for name, rounds in OVERLOAD_WINDOWS.items():
+                during = None
+                if name == "during":
+                    # during() runs as the start instant is handed out:
+                    # the workers start NETWORK_START_MARGIN_S later
+                    flood = _Flood(port, **OVERLOAD_FLOOD)
+                    flood_thread = threading.Thread(
+                        target=flood.start, daemon=True,
+                        args=(NETWORK_START_MARGIN_S
+                              + OVERLOAD_FLOOD_AFTER_S,))
+                    during = flood_thread.start
+                load, last_ack = _run_load(
+                    dict(run, rounds=rounds), [port] * run["workers"],
+                    "ovl", servers, procs, err_path, "overload",
+                    during=during, trace_sample_n=1)
+                windows[name] = {k: load[k] for k in (
+                    "ops", "ops_per_sec", "p50_ack_ms", "p99_ack_ms",
+                    "connect_seconds", "late_s", "cpu_seconds", "shed")}
+                windows[name]["start"] = round(
+                    last_ack - load["seconds"] - watch.t0, 3)
+                if load["shed"]:
+                    fail(f"overload: the steady tenant was shed "
+                         f"({load['shed']} ops, window {name})")
+                if name == "during":
+                    flood_thread.join(CHILD_TIMEOUT_S)
+                    deadline = time.time() + CHILD_TIMEOUT_S
+                    while not flood.drained():
+                        if flood.hard or time.time() > deadline:
+                            fail(f"overload: the flood did not drain: "
+                                 f"{flood.report()}")
+                        time.sleep(0.05)
+                    row["flood"].update(
+                        submit_seconds=flood.submit_seconds,
+                        offered_ops_per_sec=flood.total
+                        / max(flood.submit_seconds, 1e-9),
+                        drain_seconds=flood.last_ack - flood.started,
+                        start=round(flood.started - watch.t0, 3),
+                        shed_retries=flood.shed_retries(), acked=sum(
+                            flood.acked))
+            row["steady"] = windows
+            if flood.hard:
+                fail(f"overload: hard nacks on the flood: {flood.report()}")
+            if flood.shed_retries() <= 0:
+                watch.join()
+                fail("overload: the flood's driver never retried a shed op "
+                     f"(flood {row['flood']}, SLO {watch.slo})")
+
+            # quiescence: every doc's applierSeq at its seq
+            groups = {"bench": bench, "flood": flood.docs,
+                      CANARY_TENANT: [CANARY_DOC]}
+            while True:
+                status = {t: _network_statuses(rpc, docs, tenant=t)
+                          for t, docs in groups.items()}
+                lagging = [(t, d) for t, st in status.items()
+                           for d, (seq, app) in st.items() if app != seq]
+                if not lagging:
+                    break
+                if time.time() - last_ack > CHILD_TIMEOUT_S:
+                    fail(f"overload: {len(lagging)} docs' applierSeq lag "
+                         f"the core (first {lagging[0]})")
+                time.sleep(0.05)
+            row["catch_up_lag_seconds"] = time.time() - last_ack
+            health = _wait_health_ok(rpc, "after the drain")
+            row["health_after_seconds"] = time.time() - last_ack
+            watch.join()
+            row["slo_transitions"] = watch.slo
+            row["health_verdicts"] = watch.health
+            # the flood tenant's SLO: ok when the flood starts (it has
+            # no sample before), then violated before the flood drained
+            t0f = row["flood"]["start"]
+            t1f = t0f + row["flood"]["drain_seconds"]
+            flood_slo = watch.slo.get("flood_ingest", [])
+            at_start = [e["state"] for e in flood_slo if e["t"] <= t0f][-1:]
+            during = [e["state"] for e in flood_slo if t0f < e["t"] <= t1f]
+            if at_start != ["ok"] or "violated" not in during:
+                fail(f"overload: the flood tenant's SLO read {at_start} at "
+                     f"the flood's start and {during} until its drain (want "
+                     f"ok, then violated): {watch.slo}")
+            scrape = parse_prometheus(rpc.request(
+                {"t": "admin_metrics_scrape"})["scrape"])
+            shed = scrape.get("fluid_net_admission_shed", {})
+            tenants = sorted({dict(k).get("tenant") for k in shed})
+            row["admission_shed"] = {
+                "ops": sum(shed.values()), "tenants": tenants,
+                "by_reason": {dict(k).get("reason"): v
+                              for k, v in shed.items()}}
+            if sum(shed.values()) <= 0 or tenants != ["flood"]:
+                fail(f"overload: sheds {row['admission_shed']} (want > 0, "
+                     "the flood tenant only)")
+            violations = {dict(k).get("slo"): v for k, v in scrape.get(
+                "fluid_obs_slo_violations", {}).items()}
+            row["slo_violations"] = violations
+            if violations.get("flood_ingest", 0) < 1:
+                fail(f"overload: obs.slo.violations never counted the flood "
+                     f"tenant's SLO ({violations})")
+            row["stage_waves_observed"] = int(sum(
+                v for k, v in scrape.get("fluid_obs_hop_ms_count",
+                                         {}).items()
+                if dict(k).get("pair") == "stage_to_execute"))
+            if not row["stage_waves_observed"]:
+                fail("overload: the stage reported no wave")
+            cpu1 = {k: _cpu_seconds(pid) for k, pid in servers.items()}
+            row["cpu_seconds"] = {k: cpu1[k] - cpu0[k] for k in servers}
+            rpc.close()
+            rpc = None
+            # the canary goes on writing while the core runs: stop the
+            # core, then let the stage reach every doc's final seq. Every
+            # doc's log through the invariant monitor (a retried shed op
+            # landed once: no clientSeq gap or duplicate)
+            core.terminate()
+            core.wait(timeout=60)
+            replay = {t: _replay_log(log_dir, docs, tenant=t,
+                                     phase="overload")
+                      for t, docs in groups.items()}
+            last = {d: r["last"][d] for r in replay.values()
+                    for d in r["last"]}
+            deadline = time.time() + CHILD_TIMEOUT_S
+            while True:
+                applied = _stage_applied(state_dir)["applied"]
+                short = [d for d, seq in last.items()
+                         if applied.get(d, 0) < seq]
+                if not short:
+                    break
+                if time.time() > deadline:
+                    fail(f"overload: the stage's applied records stop short "
+                         f"of {len(short)} docs' last seq (first "
+                         f"{short[0]}: {applied.get(short[0])} < "
+                         f"{last[short[0]]})")
+                time.sleep(0.2)
+            row["replay"] = {t: {k: r[k] for k in ("observed", "redelivered")}
+                             for t, r in replay.items()}
+            stage.send_signal(signal.SIGTERM)
+            stage.wait(timeout=60)
+
+            # the stage's farm against a CPU applier fed the whole log
+            t0 = time.perf_counter()
+            farm = load_applier_checkpoint(
+                os.path.join(state_dir, "applier"), device=device)
+            if farm.host_escalations or farm._host_docs:
+                fail("overload: the stage escalated docs")
+            ref = ApplierStage(log_dir, os.path.join(tmp, "cpu"),
+                               max_docs=SERVICE_GEO["max_docs"],
+                               max_slots=SERVICE_GEO["max_slots"],
+                               device="cpu")
+            while ref.run_once():
+                pass
+            bad = [(t, d) for t, docs in groups.items() for d in docs
+                   if ref.applier.get_text(t, d) != farm.get_text(t, d)]
+            if bad:
+                fail(f"overload: {len(bad)} docs of the stage's farm differ "
+                     f"from the CPU applier (first {bad[0]})")
+            if any(farm.get_text("flood", d) != "flood"
+                   for d in flood.docs):
+                fail("overload: a flood doc's text is not its one word")
+            ref.shared.close()
+            row["farm_check_seconds"] = time.perf_counter() - t0
+
+    finally:
+        if watch is not None and watch.thread.is_alive():
+            watch.stop.set()
+        if flood is not None:
+            flood.close()
+        if rpc is not None:
+            rpc.close()
+        _stop_all(procs)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    row["card"] = power
+    emit(row)
+    return 0
+
+
+def phase_campaigns(power: str):
+    """The overload and recovery campaigns of ``chaos/`` in their full
+    forms at seed 0, host code on the card's machine: ``noisy`` (a
+    flooding tenant shed in process), ``coldstart`` (the whole fleet
+    killed and restarted twice, 0.75 s leases), ``multihost`` (one host
+    group killed and respawned; every ``os.killpg`` it makes is refused
+    if it names this process's own group) and soak phase B. Each prints
+    its result's seed-fixed fields and seconds; any failure fails the
+    phase."""
+    from fluidframework_tpu_torch.chaos import coldstart, multihost, noisy
+    from fluidframework_tpu_torch.chaos.soak import run_soak
+    from fluidframework_tpu_torch.utils.telemetry import Counters
+
+    own_group = os.getpgrp()
+    signalled = []
+    killpg = os.killpg
+
+    def guarded_killpg(pgid: int, sig: int) -> None:
+        if pgid == own_group:
+            fail(f"campaigns: a fleet signalled the smoke's own process "
+                 f"group {pgid}")
+        signalled.append(pgid)
+        killpg(pgid, sig)
+
+    def soak_b():
+        out = run_soak(0, phases="b")
+        return {k: out[k] for k in ("coverage", "observed", "redelivered",
+                                    "counters")}
+
+    def noisy_full():
+        out = noisy.run_noisy(0)
+        return {k: out[k] for k in ("flood", "steady", "shed_ops",
+                                    "shed_tenants", "slo")}
+
+    row = {"phase": "campaigns", "seed": 0}
+    campaigns = (
+        ("noisy", noisy_full),
+        ("coldstart", lambda: coldstart.run_campaign(0, Counters())),
+        ("multihost", lambda: multihost.run_campaign(0, Counters())),
+        ("soak_b", soak_b))
+    os.killpg = guarded_killpg
+    try:
+        for name, run in campaigns:
+            t0 = time.perf_counter()
+            try:
+                out = run()
+            except Exception as e:  # noqa: BLE001 — the phase's verdict
+                fail(f"campaigns: {name} failed: {e!r}")
+            row[name] = {**out, "seconds": time.perf_counter() - t0}
+    finally:
+        os.killpg = killpg
+    if not signalled:
+        fail("campaigns: multihost killed no process group")
+    row["process_groups_killed"] = len(signalled)
+    row["card"] = power
+    emit(row)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -3353,28 +3885,32 @@ def main() -> None:
             seconds[phase.__name__[len("phase_"):]] = \
                 time.perf_counter() - t0
 
-    launches = timed(phase_main_path, power)
+    # B1's launches in this process, by phase (the stage children's are
+    # their own)
+    by_phase = {"main_path": timed(phase_main_path, power)}
     timed(phase_escalation)
-    service_launches, app, cpu_texts, service_row = timed(
+    by_phase["service"], app, cpu_texts, service_row = timed(
         phase_service, name, power)
-    launches += service_launches
-    launches += timed(phase_checkpoint, app, power)
-    launches += timed(phase_stage, cpu_texts, power)
+    by_phase["checkpoint"] = timed(phase_checkpoint, app, power)
+    by_phase["stage"] = timed(phase_stage, cpu_texts, power)
     timed(phase_split, cpu_texts, service_row, power)
-    summary_launches, _, held = timed(phase_summary, power)
-    launches += summary_launches
+    by_phase["summary"], _, held = timed(phase_summary, power)
     try:
-        launches += timed(phase_history, held, power)
+        by_phase["history"] = timed(phase_history, held, power)
     finally:
         held.card.close()  # re-raises a worker exception: the run fails
-    launches += timed(phase_soak, power)
-    launches += timed(phase_replay, power)
-    launches += timed(phase_network, power)
-    launches += timed(phase_storage, power)
+    by_phase["soak"] = timed(phase_soak, power)
+    by_phase["replay"] = timed(phase_replay, power)
+    by_phase["network"] = timed(phase_network, power)
+    by_phase["storage"] = timed(phase_storage, power)
     timed(phase_sharded, power)
-    launches += timed(phase_mesh, power)
+    timed(phase_overload, power)
+    timed(phase_campaigns, power)
+    by_phase["mesh"] = timed(phase_mesh, power)
     timed(phase_long_doc, power)
     emit({"phase": "seconds", **seconds})
+    launches = sum(by_phase.values())
+    emit({"phase": "launches", "total": launches, **by_phase})
 
     main_row = rows[0]  # the main path's shape: D=1024, S=256, K=32
     print(json.dumps({"kernels": [{

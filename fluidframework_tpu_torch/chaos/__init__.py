@@ -1,12 +1,10 @@
 """chaos: deterministic fault injection + protocol invariant monitoring.
 
 JAX counterpart: ``fluidframework_tpu/chaos``. The port carries the fault
-plane, the invariant monitor, the seam installers (without the socket
-transport's hook, which comes with soak phase B, ROADMAP A8) and soak
-phase A with its ``DeviceStage`` on the card, and the sharded core's
-campaigns ``migrate`` and ``rebalance``. Soak phase B and the campaigns
-``noisy``, ``coldstart`` and ``multihost`` are not ported yet (ROADMAP
-A8, A10).
+plane, the invariant monitor, the seam installers, the two-phase soak
+(phase A with its ``DeviceStage`` on the card, phase B over sockets) and
+the campaigns ``migrate``, ``rebalance``, ``noisy``, ``coldstart`` and
+``multihost``.
 
 The durability claims the service makes (ARCHITECTURE.md "Durability &
 recovery") are exercised mechanically here, the way fluidlint exercises
@@ -18,8 +16,7 @@ strictly increasing, msn monotone and ≤ seq, clientSeq gap/dup rules,
 every submitted op acked-or-nacked exactly once after dedupe, and all
 replicas fingerprint-identical at quiescence.
 
-``python -m fluidframework_tpu_torch.chaos.soak --seed N --phases a``
-runs a recorded multi-client session under a fault schedule; the same
+``python -m fluidframework_tpu_torch.chaos.soak --seed N`` runs a recorded multi-client session under a fault schedule; the same
 seed reproduces the same injections exactly.
 
 Layering: chaos sits ABOVE service/driver (it may import them; nothing

@@ -1,18 +1,18 @@
 """Chaos soak: a seeded fault campaign against the full pipeline.
 
-JAX counterpart: ``fluidframework_tpu/chaos/soak.py``; the port's copy of
-phase A, imports rebased to this package, with ``DeviceStage``'s applier
-a ``GpuDocumentApplier`` on ``cuda`` unless given ``device="cpu"``.
+JAX counterpart: ``fluidframework_tpu/chaos/soak.py``; the port's copy,
+imports rebased to this package, with ``DeviceStage``'s applier a
+``GpuDocumentApplier`` on ``cuda`` unless given ``device="cpu"``.
 ``mesh_shards=n`` runs that applier over a doc-sharded mesh of n shards,
 all on the stage's device when one is named, else on n cards (too few
-cards raise; no virtual devices are forced). Phase B (socket clients, a
-relay-tier gateway, the snapshot plane's served chunks) is the rest of
-ROADMAP A8 and raises ``NotImplementedError``.
+cards raise; no virtual devices are forced). Phase B builds no device
+stage: it is host code (sockets, a relay gateway process of this
+package, the snapshot plane).
 
 ``python -m fluidframework_tpu_torch.chaos.soak --seed N [--quick]
-[--device cpu] [--mesh-shards N]`` runs phase A and asserts every
-invariant the monitor knows about, plus replica/device fingerprint
-identity at quiescence:
+[--phases a|b|ab] [--device cpu] [--mesh-shards N]`` runs the phases and
+asserts every invariant the monitor knows about, plus replica/device
+fingerprint identity at quiescence:
 
 - **Phase A** (in-proc, ``auto_drain=False`` — fully deterministic):
   merge-tree clients edit one document through a LocalServer while the
@@ -24,14 +24,29 @@ identity at quiescence:
   fork of the history plane in both of its crash windows. Same seed ⇒
   same injections in the same places ⇒ the same failure reproduces
   exactly.
+- **Phase B** (socket): clients drive a NetworkFrontEnd over real TCP
+  while the driver transport drops / duplicates / reorders / truncates
+  their submit frames mid-stream; recovery is the reconnect + rebase +
+  resubmit path. One client rides a relay-tier gateway that gets
+  kill -9'd mid-campaign and respawned on the same port (resubscribe +
+  gap repair), and every client publishes presence cursors through the
+  armed transport — dropped/duplicated cursor frames must be invisible
+  because the coalescing lane is LWW (asserted by a post-disarm burst
+  whose final state every peer must converge to). The phase then
+  commits a service summary under a mid-upload crash (retry recovers),
+  and boots late joiners through the columnar snapshot plane while
+  served chunk bytes arrive torn or withheld — the joiners' hash checks
+  must trip, fall back to the legacy tree shim
+  (``boot.snapshot.fallback``), and still converge to the oracle
+  fingerprint; a clean joiner must complete the columnar fast boot with
+  a bounded backfill.
 
 The run fails (exit 1) on any invariant violation, on missing boundary
-coverage (every class phase A injects — log, fanout, stage, device,
-history — must see at least one injection), or when an injected fault
-class shows no matching recovery in telemetry. ``--break-dedupe`` and
-``--no-recover`` are self-tests: each disables one recovery layer and
-the soak MUST fail, proving the monitor actually detects what the faults
-inject.
+coverage (every class — network, log, fanout, stage, device, snapshot —
+must see at least one injection), or when an injected fault class shows
+no matching recovery in telemetry. ``--break-dedupe`` and ``--no-recover``
+are self-tests: each disables one recovery layer and the soak MUST fail,
+proving the monitor actually detects what the faults inject.
 """
 
 from __future__ import annotations
@@ -40,8 +55,12 @@ import argparse
 import json
 import os
 import random
+import shutil
+import socket
+import subprocess
 import sys
 import tempfile
+import time
 from dataclasses import replace
 from typing import Optional
 
@@ -59,9 +78,11 @@ DOC = "soak"
 DS_ID = "default"
 CHANNEL_ID = "text"
 
-#: the boundary classes phase A injects (network and snapshot faults are
-#: phase B's)
-BOUNDARY_REQUIRED = ("log", "fanout", "stage", "device", "history")
+BOUNDARY_REQUIRED = ("network", "log", "fanout", "stage", "device",
+                     "snapshot", "history")
+#: the classes phase A injects on its own (network and snapshot faults
+#: are phase B's)
+PHASE_A_REQUIRED = ("log", "fanout", "stage", "device", "history")
 
 _TEXT_POOL = "abcdefgh" * 4
 
@@ -93,6 +114,24 @@ def _replica_fingerprint(replica: MergeTreeClient) -> str:
     text = replica.get_text()
     props = [replica.get_properties_at(i) or {} for i in range(len(text))]
     return doc_fingerprint(text, props)
+
+
+def _container_fingerprint(container) -> str:
+    """Fingerprint a full loader-stack container (the snapshot-booted
+    late joiners) through its shared-string channel."""
+    ss = container.runtime.get_data_store(DS_ID).get_channel(CHANNEL_ID)
+    text = ss.get_text()
+    props = [ss.client.get_properties_at(i) or {} for i in range(len(text))]
+    return doc_fingerprint(text, props)
+
+
+def wait_for(pred, timeout: float = 20.0, interval: float = 0.005) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(interval)
+    return bool(pred())
 
 
 # =====================================================================
@@ -576,9 +615,493 @@ def _oracle_fingerprint(server) -> str:
     return _replica_fingerprint(oracle)
 
 
-def _check_coverage(plane: FaultPlane) -> dict[str, int]:
-    by_class = plane.injected_by_class()
-    missing = [cls for cls in BOUNDARY_REQUIRED if not by_class.get(cls)]
+# =====================================================================
+# Phase B: socket transport campaign
+# =====================================================================
+
+
+class NetSoakClient:
+    """A driver-stack client over real TCP whose submit frames are being
+    dropped / duplicated / reordered / cut mid-frame."""
+
+    def __init__(self, service, monitor: InvariantMonitor,
+                 counters: Counters, rng: random.Random,
+                 coalesce_window: float | None = None):
+        self.service = service
+        self.monitor = monitor
+        self.counters = counters
+        self.rng = rng
+        self.coalesce_window = coalesce_window
+        self.replica: MergeTreeClient | None = None
+        self.conn = None
+        self.cseq = 0
+        self.last_seq = 0
+        self.dead = False
+        self.nacked = False
+        self.unresolved: list[int] = []
+        self.reconnects = 0
+        #: LWW view of peers' presence: (client_id, type) -> content —
+        #: exactly the state the coalescing lane guarantees converges
+        self.seen_presence: dict = {}
+        self.connect()
+
+    def connect(self) -> None:
+        conn = self.service.connect_to_delta_stream()
+        if self.coalesce_window is not None:
+            # force the driver's ingress coalescer on so the fault plane
+            # exercises MULTI-OP boxcars, not just per-op frames
+            conn.coalesce_window = self.coalesce_window
+        self.conn = conn
+        self.dead = False
+        self.nacked = False
+        self.cseq = 0
+        self.unresolved = []
+        if self.replica is None:
+            self.replica = MergeTreeClient(conn.client_id)
+        else:
+            self.replica.update_client_id(conn.client_id)
+        conn.on_disconnect = lambda reason: setattr(self, "dead", True)
+        # backfill BEFORE attaching on_op: live pushes buffer until the
+        # handler lands, then flush through the same seq-dedupe
+        storage = self.service.connect_to_delta_storage()
+        for m in storage.get_deltas(self.last_seq, 10 ** 9):
+            if m.sequence_number > self.last_seq:
+                self._apply(m)
+        conn.on_op = self._on_op
+        conn.on_nack = self._on_nack
+        conn.on_signal = self._on_signal
+
+    def _on_signal(self, sig) -> None:
+        self.seen_presence[(sig.client_id, sig.type)] = sig.content
+
+    def publish_presence(self, content) -> None:
+        """An ephemeral cursor update through the armed transport; loss
+        and duplication must both be invisible (LWW, no sequencing)."""
+        if self.dead:
+            return
+        try:
+            self.conn.submit_signal(content, type="cursor")
+        except OSError:
+            self.dead = True
+
+    def reconnect(self) -> None:
+        old_id = self.conn.client_id
+        try:
+            self.conn.close()
+        except OSError:
+            pass
+        for cseq in self.unresolved:
+            self.monitor.note_resubmitted(old_id, cseq)
+        self.connect()
+        self.reconnects += 1
+        self.counters.inc("chaos.recovered.net_reconnect")
+        with self.conn.lock:
+            wire_ops = [op_to_wire(op)
+                        for op in self.replica.regenerate_pending_ops()]
+        # resubmit as ONE boxcar: the recovery path must survive the
+        # same coalesced-frame faults the original submissions do
+        self._submit_wires(wire_ops)
+
+    def _on_op(self, m) -> None:
+        # runs on the reader thread, under the connection lock
+        if m.sequence_number <= self.last_seq:
+            self.counters.inc("chaos.recovered.client_dedup")
+            return
+        self._apply(m)
+
+    def _apply(self, m) -> None:
+        self.last_seq = m.sequence_number
+        wire = _chan_contents(m)
+        if wire is not None:
+            if self.replica.is_own_message(m.client_id):
+                self.unresolved = [c for c in self.unresolved
+                                   if c != m.client_sequence_number]
+            self.replica.apply_msg(replace(m, contents=wire))
+        else:
+            self.replica.tree.current_seq = max(
+                self.replica.tree.current_seq, m.sequence_number)
+            self.replica.tree.update_min_seq(m.minimum_sequence_number)
+
+    def _on_nack(self, nack) -> None:
+        self.nacked = True
+        op = getattr(nack, "operation", None)
+        cseq = getattr(op, "client_sequence_number", None)
+        self.monitor.note_nack(self.conn.client_id, cseq)
+        if cseq is not None:
+            self.unresolved = [c for c in self.unresolved if c != cseq]
+
+    def _submit_wires(self, wire_ops: list) -> None:
+        """Submit a round's ops as ONE multi-op boxcar frame — the
+        coalesced shape the fault plane must tear, duplicate and reorder
+        without breaking convergence."""
+        if not wire_ops:
+            return
+        msgs = []
+        for w in wire_ops:
+            self.cseq += 1
+            self.monitor.note_submit(self.conn.client_id, self.cseq)
+            self.unresolved.append(self.cseq)
+            msgs.append(_chan_msg(
+                self.cseq, self.replica.tree.current_seq, w))
+        try:
+            self.conn.submit(msgs)
+        except OSError:
+            self.dead = True
+
+    def edit(self, n_ops: int) -> None:
+        if self.dead or self.nacked:
+            return
+        rng = self.rng
+        with self.conn.lock:
+            wires = []
+            for _ in range(n_ops):
+                length = self.replica.get_length()
+                if length > 4 and rng.random() < 0.3:
+                    start = rng.randrange(length - 1)
+                    end = start + 1 + rng.randrange(
+                        min(length - start - 1, 4))
+                    op = self.replica.remove_range_local(start, end)
+                else:
+                    off = rng.randrange(8)
+                    text = _TEXT_POOL[off:off + 1 + rng.randrange(6)]
+                    op = self.replica.insert_text_local(
+                        rng.randrange(length + 1), text)
+                wires.append(op_to_wire(op))
+            self._submit_wires(wires)
+
+    @property
+    def settled(self) -> bool:
+        return not self.dead and not self.nacked and not self.unresolved \
+            and not self.replica.pending
+
+
+def _pick_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _spawn_relay(core_port: int, port: int):
+    """A relay-tier gateway as a real OS process, so the kill seam is a
+    genuine kill -9 of a fan-out tier (not a polite shutdown)."""
+    repo_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service.gateway",
+         "--core-port", str(core_port), "--port", str(port), "--python"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        cwd=repo_root)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("LISTENING"):
+        proc.kill()
+        raise RuntimeError(f"relay gateway failed to start: {line!r}")
+    return proc
+
+
+def run_phase_b(seed: int, counters: Counters, rounds: int = 16,
+                n_clients: int = 2) -> tuple[FaultPlane, InvariantMonitor]:
+    from ..driver.network import (NetworkDocumentService,
+                                  NetworkDocumentServiceFactory)
+    from ..loader.container import Loader
+    from ..service.durable_log import DurableLog
+    from ..service.front_end import NetworkFrontEnd
+    from ..service.local_server import LocalServer
+    from ..service.service_summarizer import (HostReplicaSource,
+                                              ServiceSummarizer)
+
+    monitor = InvariantMonitor(counters)
+    plane = FaultPlane(seed + 1, counters)
+
+    def submit_frames(ctx):
+        return ctx.get("kind") == "submit"
+
+    def deltas_abatch(ctx):
+        record = ctx.get("record")
+        return ctx["topic"].startswith("deltas/") \
+            and isinstance(record, dict) and "abatch" in record
+
+    def signal_frames(ctx):
+        return ctx.get("kind") == "signal"
+
+    plane.rule("net.send", "drop", at=4, when=submit_frames)
+    plane.rule("net.send", "dup", every=5, times=2, when=submit_frames)
+    plane.rule("net.send", "delay", at=9, when=submit_frames)
+    plane.rule("net.send", "truncate", at=14, when=submit_frames)
+    # presence lane: drop and duplicate ephemeral cursor frames — the
+    # LWW coalescing lane must make BOTH invisible (no gap repair, no
+    # dedupe bookkeeping; a later publish simply overwrites)
+    plane.rule("net.send", "drop", every=4, times=3, when=signal_frames)
+    plane.rule("net.send", "dup", every=5, times=3, when=signal_frames)
+    # relay-tier kill: one fan-out gateway dies mid-campaign and is
+    # respawned on the same port; its clients must ride reconnect +
+    # gap repair through the fresh tier
+    plane.rule("relay.kill", "down", at=5)
+    # columnar segment-tail tears: a power cut mid seg_append leaves
+    # ragged bytes the torn-tail scan must cut before the re-append —
+    # unlike the rawops torn (record lost, client resubmits), a deltas
+    # record is already ticketed and must SURVIVE the tear
+    # (abatch records are sparse in quick mode — a handful of coalesced
+    # boxcars per run — so schedule by match ordinal, not a wide stride)
+    plane.rule("log.append", "torn", at=1, when=deltas_abatch)
+    plane.rule("log.append", "torn", every=3, times=1, when=deltas_abatch)
+
+    log_dir = tempfile.mkdtemp(prefix="chaos-soak-seg-")
+    server = LocalServer(log=DurableLog(log_dir))
+    monitor.attach(server.log, f"deltas/{TENANT}/{DOC}")
+    front = NetworkFrontEnd(server).start_background()
+    relay_port = _pick_port()
+    relay = _spawn_relay(front.port, relay_port)
+    uninstall = install(plane, transports=True, server=server)
+    uninstall_snap: list = []
+    joiners: list = []
+    try:
+        # the LAST client rides the relay tier; the rest dial the core
+        # directly — so a relay kill takes out one subscriber path while
+        # the writers keep the stream moving
+        ports = [front.port] * (n_clients - 1) + [relay_port]
+        clients = [
+            NetSoakClient(
+                NetworkDocumentService("127.0.0.1", ports[i], TENANT,
+                                       DOC, counters=counters),
+                monitor, counters, random.Random(seed * 7000 + i),
+                coalesce_window=0.02)
+            for i in range(n_clients)]
+        rng = random.Random(seed + 2)
+        for rnd in range(rounds):
+            for c in clients:
+                if c.dead or c.nacked:
+                    c.reconnect()
+                c.edit(1 + rng.randrange(2))
+                c.publish_presence({"round": rnd})
+            if plane("relay.kill", round=rnd) == "down":
+                # kill -9 the fan-out tier, then bring a fresh one up on
+                # the SAME port: the relay client's reconnect loop must
+                # resubscribe through it and gap-repair what it missed
+                relay.kill()
+                relay.wait(timeout=10)
+                relay = _spawn_relay(front.port, relay_port)
+                counters.inc("chaos.recovered.relay_respawn")
+            time.sleep(0.01)
+
+        # ---- snapshot fast-boot campaign (plane still armed) ----
+        # quiesce the stream so the summarizer's coverage gate and its
+        # replica ingest observe the same prefix
+        orderer = server._get_orderer(TENANT, DOC)
+
+        def _stream_stable():
+            s0 = orderer.deli.sequence_number
+            time.sleep(0.05)
+            return orderer.deli.sequence_number == s0
+
+        wait_for(_stream_stable, timeout=10.0)
+
+        # the first summarize dies mid-upload (chunks + version record
+        # durable, commit never ran — the version must stay invisible);
+        # recovery is a restarted summarizer redoing the pass, with the
+        # content-addressed chunk store absorbing the re-upload
+        plane.rule("snapshot.upload", "crash", every=1, times=1)
+        summarizer = ServiceSummarizer(server, HostReplicaSource(server))
+        uninstall_snap.append(install(plane, fronts=[front],
+                                      summarizers=[summarizer]))
+        version = None
+        for _ in range(5):
+            try:
+                version = summarizer.summarize_doc(TENANT, DOC)
+                break
+            except SimulatedCrash:
+                counters.inc("chaos.recovered.summary_retry")
+                summarizer = ServiceSummarizer(server,
+                                               HostReplicaSource(server))
+                uninstall_snap.append(
+                    install(plane, summarizers=[summarizer]))
+            except RuntimeError:
+                # stream advanced between gate scan and ingest: re-wait
+                wait_for(_stream_stable, timeout=10.0)
+        if version is None:
+            raise InvariantViolation(
+                "phase B never committed a service summary — the "
+                "snapshot campaign has nothing to boot from")
+
+        def _join():
+            # each joiner gets a COLD factory (fresh snapshot/chunk
+            # cache) sharing the campaign counters, so every boot pulls
+            # real chunk frames through the armed serving seam
+            factory = NetworkDocumentServiceFactory(
+                "127.0.0.1", front.port, counters=counters)
+            return Loader(factory).resolve(TENANT, DOC)
+
+        plane.rule("snapshot.chunk", "torn", every=1, times=1)
+        joiners.append(_join())   # torn wire bytes: hash check → fallback
+        plane.rule("snapshot.chunk", "drop", every=1, times=1)
+        joiners.append(_join())   # withheld chunk: hole → fallback
+        joiners.append(_join())   # clean columnar fast boot
+
+        # settle: stop injecting, then resolve every open submission
+        plane.disarm()
+        for _ in range(8):
+            for c in clients:
+                if c.dead or c.nacked or c.unresolved:
+                    c.reconnect()
+            if wait_for(lambda: all(c.settled for c in clients),
+                        timeout=5.0):
+                break
+        server_seq = server._get_orderer(TENANT, DOC).deli.sequence_number
+        wait_for(lambda: all(c.last_seq >= server_seq for c in clients))
+        for c in clients:
+            if c.last_seq < server_seq:
+                with c.conn.lock:
+                    storage = c.service.connect_to_delta_storage()
+                    for m in storage.get_deltas(c.last_seq, 10 ** 9):
+                        if m.sequence_number > c.last_seq:
+                            c._apply(m)
+
+        # joiners are live containers: wait until each has processed the
+        # whole sequenced stream before fingerprinting
+        for j in joiners:
+            wait_for(lambda: j.delta_manager.last_processed_seq
+                     >= server_seq)
+
+        # ---- presence lane: post-disarm final burst, LWW convergence.
+        # Every armed-phase drop/dup of a cursor frame must be invisible
+        # BY DESIGN: a later publish overwrites, so after a clean final
+        # burst every client's last-seen state per peer is the peer's
+        # final publish — no gap repair, no dedupe, no sequencing.
+        ids = [c.conn.client_id for c in clients]
+
+        def _final(i):
+            return {"final": ids[i], "k": 9}
+
+        def _presence_converged():
+            return all(
+                cj.seen_presence.get((ids[i], "cursor")) == _final(i)
+                for i, _ in enumerate(clients)
+                for j, cj in enumerate(clients) if j != i)
+
+        def _burst_and_check():
+            for k in range(10):
+                for i, c in enumerate(clients):
+                    c.publish_presence({"final": ids[i], "k": k})
+            time.sleep(0.05)  # two flush ticks
+            return _presence_converged()
+
+        if not wait_for(_burst_and_check, timeout=20.0, interval=0.05):
+            raise InvariantViolation(
+                "presence lane failed LWW convergence after the "
+                "post-disarm burst — a dropped/duplicated cursor frame "
+                "left visible damage")
+        counters.inc("chaos.recovered.presence_lww")
+        psnap = front.counters.snapshot()
+        if not psnap.get("presence.lane.signals", 0):
+            raise InvariantViolation(
+                "phase B published cursor frames but the presence lane "
+                "never saw one — signals bypassed the coalescing tier")
+        if not psnap.get("presence.lane.coalesced", 0):
+            raise InvariantViolation(
+                "the presence bursts never coalesced — the LWW lane "
+                "went unexercised under faults")
+
+        fps = {}
+        for i, c in enumerate(clients):
+            with c.conn.lock:
+                fps[f"net-client{i}"] = _replica_fingerprint(c.replica)
+        for i, j in enumerate(joiners):
+            fps[f"joiner{i}"] = _container_fingerprint(j)
+        fps["oracle"] = _oracle_fingerprint(server)
+        monitor.check_quiescent(fps)
+        snap = counters.snapshot()
+        fallbacks = snap.get("boot.snapshot.fallback", 0)
+        if fallbacks < 2:
+            raise InvariantViolation(
+                "phase B injected torn + dropped snapshot chunks but "
+                f"the boot fallback fired only {fallbacks} times — a "
+                "corrupted chunk boot went unnoticed")
+        if not snap.get("boot.snapshot.used", 0):
+            raise InvariantViolation(
+                "phase B never completed a clean columnar snapshot "
+                "boot — the fast-boot path went unexercised under "
+                "faults")
+        if not snap.get("boot.backfill.bounded", 0):
+            raise InvariantViolation(
+                "the clean snapshot boot never took the bounded "
+                "backfill — catch-up degenerated to whole-log replay")
+        fsnap = front.counters.snapshot()
+        if fsnap.get("storage.snapshot.encodes", 0) != 1:
+            raise InvariantViolation(
+                "snapshot serving re-encoded per join under faults "
+                f"(encodes={fsnap.get('storage.snapshot.encodes', 0)}"
+                ", expected the one-time framed-cache fill)")
+        if monitor.observed < 10:
+            raise InvariantViolation(
+                f"phase B observed only {monitor.observed} sequenced "
+                "messages — the workload did not run")
+        snap = counters.snapshot()
+        frames = snap.get("driver.submit.frames", 0)
+        ops = snap.get("driver.submit.ops", 0)
+        if not frames or ops <= frames:
+            raise InvariantViolation(
+                "phase B never drove a multi-op boxcar through the "
+                f"fault plane (frames={frames}, ops={ops}) — the "
+                "coalesced submit path went unexercised")
+        if not snap.get("driver.submit.columnar", 0):
+            # columnar frames keep kind="submit" on the net.send seam,
+            # so the drop/dup/delay/truncate rules above faulted them;
+            # a zero counter means the fast path silently disengaged
+            # and the soak stopped covering it
+            raise InvariantViolation(
+                "phase B never drove a COLUMNAR boxcar through the "
+                "fault plane — the columnar ingress path went "
+                "unexercised under faults")
+        seg = server.log.counters.snapshot()
+        if not seg.get("storage.segment.appends", 0):
+            raise InvariantViolation(
+                "phase B ran over a DurableLog but no columnar segment "
+                "block was ever appended — the segment lane went "
+                "unexercised under faults")
+        torn = seg.get("storage.segment.torn", 0)
+        if not torn:
+            raise InvariantViolation(
+                "phase B never tore a columnar segment tail — the "
+                "torn-tail recovery scan went unexercised")
+        # the tear left physical ragged bytes and the untear+re-append
+        # cycle recovered every one (the record survived: convergence
+        # above already proved no seq gap) — record the recovery so the
+        # injected↔recovered cross-check can pair it
+        counters.inc("chaos.recovered.segment_untear", torn)
+        for c in clients:
+            c.conn.close()
+    finally:
+        for j in joiners:
+            j.close()
+        relay.terminate()
+        relay.wait(timeout=10)
+        while uninstall_snap:
+            uninstall_snap.pop()()
+        uninstall()
+        front.stop()
+        # Deliberately NOT server.log.close(): lingering session-close
+        # callbacks on the front's (now stopped) loop still run at task
+        # destruction and append their disconnect records; a closed log
+        # turns that into interpreter-exit OSError noise. The open fds
+        # keep the unlinked files writable until process exit.
+        server.log.flush()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return plane, monitor
+
+
+# =====================================================================
+# The campaign
+# =====================================================================
+
+
+def _check_coverage(planes: list[FaultPlane],
+                    required=BOUNDARY_REQUIRED) -> dict[str, int]:
+    merged = planes[0]
+    for p in planes[1:]:
+        merged.merge_ledger(p)
+    by_class = merged.injected_by_class()
+    missing = [cls for cls in required if not by_class.get(cls)]
     if missing:
         raise InvariantViolation(
             f"boundary coverage incomplete: no fault injected for "
@@ -596,9 +1119,12 @@ def _cross_check(counters: Counters) -> None:
                    if k.startswith(prefix) and isinstance(v, int))
 
     expectations = [
-        # a rawops tear loses the record: the client reconnects and
-        # resubmits (the columnar segment tear of phase B untears instead)
-        ("chaos.injected.log.append.torn", "chaos.recovered.reconnect"),
+        # torn has TWO recovery paths by design: a rawops tear loses the
+        # record (client reconnect+resubmit); a columnar segment tear
+        # leaves physical ragged bytes the untear scan cuts before the
+        # re-append (record survives)
+        ("chaos.injected.log.append.torn",
+         ("chaos.recovered.reconnect", "chaos.recovered.segment_untear")),
         ("chaos.injected.log.append.rewind",
          "chaos.recovered.monitor_dedup"),
         ("chaos.injected.broadcast.publish.drop",
@@ -617,6 +1143,32 @@ def _cross_check(counters: Counters) -> None:
         ("chaos.injected.applier.stage.inflight",
          "chaos.recovered.stage_restart"),
         ("chaos.injected.stage.crash", "chaos.recovered.orderer_restart"),
+        ("chaos.injected.net.send.truncate",
+         "chaos.recovered.net_reconnect"),
+        # a dropped frame is either a submit (reconnect + resubmit) or a
+        # presence cursor (the LWW lane makes the loss invisible — the
+        # convergence check stamps presence_lww when it proves it)
+        ("chaos.injected.net.send.drop",
+         ("chaos.recovered.net_reconnect",
+          "chaos.recovered.presence_lww")),
+        # a duplicated frame is absorbed by seq-dedupe (submits) or by
+        # the presence lane's LWW overwrite (signals)
+        ("chaos.injected.net.send.dup",
+         ("chaos.recovered.client_dedup",
+          "chaos.recovered.presence_lww")),
+        # the relay-tier kill recovers through respawn + the relay
+        # client's reconnect loop
+        ("chaos.injected.relay.kill.down",
+         ("chaos.recovered.relay_respawn",
+          "chaos.recovered.net_reconnect")),
+        # snapshot plane: a torn/withheld served chunk must trip the
+        # booting client's verify and route it down the legacy-tree
+        # fallback; a mid-upload summarizer crash must be absorbed by
+        # the restarted pass
+        ("chaos.injected.snapshot.chunk.torn", "boot.snapshot.fallback"),
+        ("chaos.injected.snapshot.chunk.drop", "boot.snapshot.fallback"),
+        ("chaos.injected.snapshot.upload.crash",
+         "chaos.recovered.summary_retry"),
         # a crash mid-fork (either window) recovers through the history
         # plane's adopt-or-discard pass on the next load
         ("chaos.injected.history.fork.crash",
@@ -624,9 +1176,11 @@ def _cross_check(counters: Counters) -> None:
     ]
     problems = []
     for injected, recovered in expectations:
-        if count(injected) > 0 and not count(recovered):
+        alternatives = (recovered,) if isinstance(recovered, str) \
+            else recovered
+        if count(injected) > 0 and not any(count(r) for r in alternatives):
             problems.append(f"{injected}={count(injected)} but "
-                            f"{recovered}=0")
+                            f"{'/'.join(alternatives)}=0")
     if problems:
         raise InvariantViolation(
             "faults injected without observed recoveries: "
@@ -634,30 +1188,41 @@ def _cross_check(counters: Counters) -> None:
 
 
 def run_soak(seed: int, quick: bool = False, break_dedupe: bool = False,
-             no_recover: bool = False, phases: str = "a",
+             no_recover: bool = False, phases: str = "ab",
              mesh_shards: int = 0, device=None) -> dict:
-    """Run the campaign's phase A on ``device`` (the stage's applier;
-    ``cuda`` when None; over a mesh of ``mesh_shards`` docs shards when
-    nonzero) and return its result; raises
-    :class:`InvariantViolation` on any failure."""
-    if "b" in phases:
-        raise NotImplementedError(
-            "soak phase B (socket clients, relay gateway, snapshot plane) "
-            "is not ported to fluidframework_tpu_torch yet (ROADMAP A8)")
+    """Run the campaign's ``phases`` and return its result; raises
+    :class:`InvariantViolation` on any failure. Phase A's stage applier
+    runs on ``device`` (``cuda`` when None; over a mesh of
+    ``mesh_shards`` docs shards when nonzero); phase B is host code."""
     counters = tier_counters("chaos")
-    plane, monitor = run_phase_a(
-        seed, counters,
-        rounds=10 if quick else 24,
-        recover=not no_recover, break_dedupe=break_dedupe,
-        mesh_shards=mesh_shards, device=device)
-    coverage = _check_coverage(plane)
+    planes = []
+    monitors = []
+    if "a" in phases:
+        plane_a, mon_a = run_phase_a(
+            seed, counters,
+            rounds=10 if quick else 24,
+            recover=not no_recover, break_dedupe=break_dedupe,
+            mesh_shards=mesh_shards, device=device)
+        planes.append(plane_a)
+        monitors.append(mon_a)
+    if "b" in phases:
+        plane_b, mon_b = run_phase_b(seed, counters,
+                                     rounds=8 if quick else 16)
+        planes.append(plane_b)
+        monitors.append(mon_b)
+    if phases == "ab":
+        coverage = _check_coverage(planes)
+    elif phases == "a":
+        coverage = _check_coverage(planes, PHASE_A_REQUIRED)
+    else:
+        coverage = planes[0].injected_by_class()
     _cross_check(counters)
-    flight_dump = _check_flight_dump(counters)
+    flight_dump = _check_flight_dump(counters) if "a" in phases else None
     return {
         "seed": seed,
         "coverage": coverage,
-        "observed": monitor.observed,
-        "redelivered": monitor.redelivered,
+        "observed": sum(m.observed for m in monitors),
+        "redelivered": sum(m.redelivered for m in monitors),
         "flight_dump": flight_dump,
         "counters": {k: v for k, v in sorted(counters.snapshot().items())
                      if k.startswith("chaos.")},
@@ -688,12 +1253,11 @@ def _check_flight_dump(counters: Counters) -> Optional[str]:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="deterministic chaos soak, phase A")
+        description="deterministic chaos soak")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quick", action="store_true",
                         help="shorter campaign (CI smoke)")
-    parser.add_argument("--phases", default="a", choices=["a"],
-                        help="phase B is not ported yet")
+    parser.add_argument("--phases", default="ab", choices=["a", "b", "ab"])
     parser.add_argument("--device", default=None,
                         help="the device stage's device (default cuda)")
     parser.add_argument("--mesh-shards", type=int, default=0,

@@ -3,7 +3,14 @@
 JAX counterpart: ``fluidframework_tpu/driver/network.py``; the port's
 copy, imports rebased to this package. It speaks the same wire as the
 JAX package's front end and gateway, so either package's client talks to
-either package's service.
+either package's service. One repair (ROADMAP C9): the shed-retry lane
+parks ops in clientSeq order (``_queue_shed_retry``), resubmits only a
+gap-free run with no unresolved op before it (``_shed_run``), and holds
+newer ops until the ops whose shed nacks were still on the way when it
+resubmitted are resolved (``_held``), for as long as the connection
+lives: a disconnect resolves them all, since the reconnect resubmits
+every unacked op. The JAX driver appends in nack order and resubmits
+the whole lane with whatever is pending.
 
 Ref: packages/drivers/routerlicious-driver (documentService.ts:22 wires
 stream + delta storage + snapshot storage to the service endpoints) and
@@ -30,6 +37,7 @@ fraction of that latency for frame amortization. Set
 
 from __future__ import annotations
 
+import bisect
 import itertools
 import json
 import random
@@ -61,6 +69,10 @@ FRAME_FAULT_HOOK = None
 #: binwire boxcars carry a u16 op count; chunk well below it so the
 #: string pool of a pathological wave cannot overflow either
 _MAX_BOXCAR_OPS = 60000
+
+#: how long a shed lane waits before it looks again when an op sent
+#: before its first is still unresolved (its nack or ack is on the way)
+_SHED_HOLD_S = 0.05
 
 #: adaptive-window tuning: below this observed ack latency the client
 #: counts as fast/idle and submits inline (window 0); above it the
@@ -422,6 +434,18 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
         # stamp at this time so shed_to_submit measures park duration
         self._shed_park_wall: Optional[float] = None
         self._pending_shed_wall: Optional[float] = None
+        # clientSeqs on the wire and neither acked nor nacked yet (noops,
+        # which deli may consume unsequenced, are not counted): a
+        # resubmit may not start past one of them. Written under
+        # _coal_cv, except the ack's discard, which takes no lock: every
+        # read of the set is one C call (min, copy, &=), never a Python
+        # loop over it
+        self._unresolved: set = set()
+        # unresolved ops sent before the last resubmit and past its end
+        # (their shed nacks are on the way): nothing newer may go out
+        # before them, since the resubmit may clear the server's resume
+        # watermark that sheds them
+        self._stragglers: set = set()
 
         def on_ops(f):
             for d in f["msgs"]:
@@ -487,18 +511,27 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
                 and nack.operation is not None):
             self._queue_shed_retry(nack.operation, nack.retry_after_ms)
             return
+        cseq = getattr(nack.operation, "client_sequence_number", None)
+        with self._coal_cv:
+            self._unresolved.discard(cseq)
         self._deliver("nack", nack)
 
     def _queue_shed_retry(self, op, retry_ms: int) -> None:
-        # shed nacks arrive in submit (= clientSeq) order, so appending
-        # preserves the resubmit order the server's resume watermark
-        # expects; jitter keeps a shed fleet from re-flooding in
-        # lockstep
+        # the parked ops stay in clientSeq order, the resubmit order the
+        # server's resume watermark expects. Appending is not enough:
+        # when the backoff runs out mid-nack-wave the flusher resends
+        # the parked prefix, and if that prefix is shed again its nacks
+        # arrive AFTER the wave's tail — appended, the next resubmit
+        # would lead with a clientSeq past the watermark and be shed
+        # for ordering on every retry (a livelock the JAX driver still
+        # has). Jitter keeps a shed fleet from re-flooding in lockstep.
         delay = (retry_ms / 1000.0) * (1.0 + 0.5 * random.random())
         with self._coal_cv:
             if self._coal_closed:
                 return
-            self._shed_ops.append(op)
+            self._unresolved.discard(op.client_sequence_number)
+            bisect.insort(self._shed_ops, op,
+                          key=lambda o: o.client_sequence_number)
             if self._shed_park_wall is None:
                 self._shed_park_wall = time.time()
             self._shed_deadline = max(self._shed_deadline or 0.0,
@@ -513,6 +546,7 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
                     self, "client_id", None):
             # own op came back sequenced: close the ack-latency loop the
             # adaptive coalescing window tunes from
+            self._unresolved.discard(event.client_sequence_number)
             t0 = self._inflight_ts.pop(event.client_sequence_number, None)
             if t0 is not None:
                 dt = time.monotonic() - t0
@@ -641,6 +675,7 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
         try:
             while True:
                 with self._coal_cv:
+                    self._flush_deadline = None
                     if self._shed_ops:
                         now = time.monotonic()
                         if (self._shed_deadline is not None
@@ -648,24 +683,63 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
                             # backoff still running: nothing may pass
                             # the held ops (clientSeq order); the
                             # flusher re-enters at the deadline
-                            self._flush_deadline = None
                             return
-                        ops = self._shed_ops + self._pending_ops
-                        self._shed_ops = []
-                        self._shed_deadline = None
+                        ops = self._shed_run()
+                        if not ops:
+                            self._shed_deadline = now + _SHED_HOLD_S
+                            return
+                        self._shed_deadline = (now + _SHED_HOLD_S
+                                               if self._shed_ops else None)
                         self._pending_shed_wall = self._shed_park_wall
                         self._shed_park_wall = None
+                        last = ops[-1].client_sequence_number
+                        self._stragglers = {
+                            c for c in self._unresolved.copy() if c > last}
+                    elif self._pending_ops and self._held():
+                        self._flush_deadline = (time.monotonic()
+                                                + _SHED_HOLD_S)
+                        self._ensure_flusher()
+                        return
                     else:
-                        ops = self._pending_ops
-                    self._flush_deadline = None
+                        ops, self._pending_ops = self._pending_ops, []
                     if not ops:
                         return
-                    self._pending_ops = []
+                    self._unresolved.update(
+                        op.client_sequence_number for op in ops
+                        if op.type != MessageType.NOOP)
                 self._send_ops(ops)
         finally:
             with self._coal_cv:
                 self._send_inflight = False
                 self._coal_cv.notify_all()
+
+    def _held(self) -> bool:
+        """Whether new ops must wait for the last resubmit's stragglers.
+        Called under ``_coal_cv``."""
+        self._stragglers &= self._unresolved
+        return bool(self._stragglers)
+
+    def _shed_run(self) -> list:
+        """Take the resubmit: the held ops, then the newer pending ones,
+        as far as their clientSeqs run without a gap from the lane's
+        first; nothing while an op sent before that first is
+        unresolved. A resubmit the server admits must not skip an op
+        whose shed nack is still on the way (the backoff can run out
+        mid-nack-wave): deli would nack everything past the gap. Called
+        under ``_coal_cv``."""
+        lane, pending = self._shed_ops, self._pending_ops
+        first = lane[0].client_sequence_number
+        if min(self._unresolved, default=first) < first:
+            return []
+        run = []
+        for op in itertools.chain(lane, pending):
+            if op.client_sequence_number != first + len(run):
+                break
+            run.append(op)
+        held = min(len(run), len(lane))
+        self._shed_ops = lane[held:]
+        self._pending_ops = pending[len(run) - held:]
+        return run
 
     def _send_ops(self, ops: list) -> None:
         for i in range(0, len(ops), _MAX_BOXCAR_OPS):
@@ -682,7 +756,12 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
                 # op is never lost silently.
                 with self._coal_cv:
                     if not self._coal_closed:
-                        self._shed_ops[:0] = ops[i:]
+                        for op in ops[i:]:
+                            self._unresolved.discard(
+                                op.client_sequence_number)
+                            bisect.insort(
+                                self._shed_ops, op,
+                                key=lambda o: o.client_sequence_number)
                         if self._shed_park_wall is None:
                             self._shed_park_wall = time.time()
                         self._shed_deadline = max(
@@ -759,6 +838,13 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
             if self._disc_fired:
                 return
             self._disc_fired = True
+        with self._coal_cv:
+            # no ack or nack comes on a dropped connection: the shed
+            # lane stops holding for them (the reconnect resubmits every
+            # unacked op)
+            self._unresolved.clear()
+            self._stragglers.clear()
+            self._coal_cv.notify_all()
         if self.on_disconnect:
             self.on_disconnect(reason)
 

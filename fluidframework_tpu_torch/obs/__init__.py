@@ -1,11 +1,9 @@
 """Observability plane of the port (JAX counterpart:
 ``fluidframework_tpu/obs``): the labeled metrics registry with a
-Prometheus scrape, the crash flight recorder and the control-plane audit
-journal. The registry and the journal are the port's own process-wide
-objects, separate from the JAX package's.
-
-The SLO engine, the canary prober and the health engine are not ported
-yet (ROADMAP A10).
+Prometheus scrape, the crash flight recorder, the control-plane audit
+journal, the SLO engine, the canary prober and the health engine. The
+registry and the journal are the port's own process-wide objects,
+separate from the JAX package's.
 """
 
 from .flight import (  # noqa: F401
@@ -33,4 +31,9 @@ from .metrics import (  # noqa: F401
     sum_counter_snapshots,
     tier_counters,
     tier_snapshot,
+)
+from .slo import (  # noqa: F401
+    SloEngine,
+    SloSpec,
+    parse_slo_spec,
 )

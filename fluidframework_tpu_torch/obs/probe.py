@@ -1,9 +1,9 @@
 """Canary prober: synthetic blackbox probes through the REAL doors.
 
 JAX counterpart: ``fluidframework_tpu/obs/probe.py``; the port's copy,
-imports rebased to this package. The front end's ``--probe`` flag, which
-arms it with the health engine, waits for ``obs/health.py`` (ROADMAP
-A10); ``CANARY_TENANT`` is what the admission seams read today.
+imports rebased to this package. The front end's ``--probe`` flag (or a
+topology spec's ``health`` stanza) arms it beside the health engine
+(``obs/health.py``).
 
 The SLO engine only sees tenant traffic — a component that drops no
 real request is invisible to it until a user arrives (the gray-failure

@@ -16,7 +16,9 @@ splits docs into partitions across several front ends: ``placement``
 leases and the ``placement_plane`` epoch table route each partition to
 one ``front_end.ShardHost``, which migrates it live or takes it over
 when its owner dies; ``rebalancer`` moves hot partitions, and
-``topology`` starts a whole fleet from one spec.
+``topology`` starts a whole fleet from one spec. ``admission`` gates
+tenants by rate and SLO burn, ``foreman`` brokers tasks to external
+workers, and ``copier`` archives the raw ops topic.
 """
 
 __all__ = ["Gateway", "NetworkFrontEnd"]

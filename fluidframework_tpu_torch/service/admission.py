@@ -2,9 +2,10 @@
 
 JAX counterpart: ``fluidframework_tpu/service/admission.py``; the port's
 copy, imports rebased to this package. The token buckets' rates come from
-a tenant registry (ported) and the burn signal from an SLO engine, which
-waits for ROADMAP A10 (``obs/slo.py``), so the port's front end
-constructs no controller yet.
+the tenant registry and the burn signal from the SLO engine
+(``obs/slo.py``); the front end builds the controller in
+``enable_admission`` (``--tenant-rate``) and attaches the engine in
+``attach_slo`` (``--slo``).
 
 Ref: Routerlicious gets overload protection for free from Kafka
 backpressure plus Alfred's per-tenant throttler

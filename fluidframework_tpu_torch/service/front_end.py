@@ -6,12 +6,11 @@ client door, the gateway backbone, the admin RPCs, the stage backchannel,
 the service-summarizer loop, tenant tokens and the tenant registry, the
 sharded core (``ShardHost``, ``NetworkFrontEnd(shard_host=)``, the
 migration seal and the placement admin doors, partition heat, the lease
-poll, lazy boot admission and the rebalancer),
-``start_background``/``serve_forever`` and ``main()``. What the port does
-not carry yet raises ``NotImplementedError`` naming its ROADMAP item: the
-overload and health plane (``--tenant-rate``, ``--slo``, ``--no-shed``,
-``--probe``, ``enable_admission``, ``attach_slo``, ``enable_health`` and
-fleet ``admin_health``, A10).
+poll, lazy boot admission and the rebalancer), the overload and health
+plane (``enable_admission``, ``attach_slo``, ``enable_health``, fleet
+``admin_health`` and the ``--tenant-rate``/``--slo``/``--no-shed``/
+``--probe`` flags), the ``snapshot.chunk`` chaos seam,
+``start_background``/``serve_forever`` and ``main()``.
 
 Ref: lambdas/src/alfred/index.ts:112-405 — the reference's front end is a
 socket.io server doing the connect_document handshake (:159,:285),
@@ -90,12 +89,6 @@ from .scriptorium import LogTruncatedError
 
 MAX_FRAME = 8 * 1024 * 1024  # absolute wire-frame cap (storage payloads)
 DEFAULT_MAX_MESSAGE_SIZE = 16 * 1024  # per-op cap, nacked (ref :96)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"front end {what} is not ported to fluidframework_tpu_torch yet "
-        f"(ROADMAP {item})")
 # backoff hint on submits bounced off a sealed (mid-migration)
 # partition: long enough for checkpoint+handoff of a hot partition,
 # short enough to keep the client-visible migration blip small
@@ -1003,11 +996,23 @@ class _ClientSession:
             front.counters.inc("storage.snapshot.cache_hits")
         vid, framed, root = entry
         have = set(frame.get("have") or ())
+        plane = front.fault_plane
         sent = 0
         for h in root["chunks"]:
             if h in have:
                 continue
-            self.push_raw(framed[h])
+            raw = framed[h]
+            if plane is not None:
+                directive = plane("snapshot.chunk", tenant=tenant,
+                                  doc=doc, chunk=h)
+                if directive == "drop":
+                    continue  # the client sees a hole and falls back
+                if directive == "torn":
+                    # mangled wire bytes under the real hash: the
+                    # client's sha256 verify must refuse them
+                    raw = binwire.frame(binwire.snap_chunk_body(
+                        0, h, b"\x00chaos-torn\x00"))
+            self.push_raw(raw)
             sent += 1
         front.counters.inc("storage.snapshot.served")
         self.push("snapshot", {
@@ -1445,15 +1450,32 @@ class _ClientSession:
             self.push("admin", {"rid": rid, "path": path,
                                 "journal": dump_id})
         elif t == "admin_health":
-            # the streaming doctor (--probe) comes with ROADMAP A10: an
-            # unarmed core answers verdict="unknown", as the JAX core does
-            if frame.get("fleet"):
-                raise _not_ported("fleet health", "A10")
-            owner = (front.shard_host.owner_id
-                     if front.shard_host is not None else "")
-            self.push("admin", {"rid": rid, "health": {
-                "core": owner, "verdict": "unknown", "components": {},
-                "armed": False}})
+            # read-only: the streaming doctor's live verdict for this
+            # core (and, with fleet=1, every peer's — worst verdict
+            # wins). An unarmed core answers verdict="unknown" rather
+            # than erroring so a fan-out over a mixed deployment
+            # (some cores without --probe) still completes.
+            engine = front.health_engine
+            if engine is not None:
+                local = dict(engine.status(), armed=True)
+            else:
+                owner = (front.shard_host.owner_id
+                         if front.shard_host is not None else "")
+                local = {"core": owner, "verdict": "unknown",
+                         "components": {}, "armed": False}
+            if not frame.get("fleet"):
+                self.push("admin", {"rid": rid, "health": local})
+                return
+            sh = front.shard_host
+            rec = sh.table.read() if sh is not None else {}
+            # each peer is a synchronous socket dial with a
+            # multi-second timeout: fan out off-loop, push the
+            # aggregate from the done-callback (admin_placement's
+            # --fleet pattern)
+            self._reply_offloop(
+                rid, lambda: front._fleet_health(rec, local),
+                lambda health: self.push(
+                    "admin", {"rid": rid, "health": health}))
 
     def _unsubscribe_ftopic(self, topic: str) -> None:
         entry = self._ftopics.pop(topic, None)
@@ -1768,6 +1790,13 @@ class NetworkFrontEnd:
     partition's LocalServer and refuses docs this core doesn't own.
     """
 
+    #: chaos seam (chaos/plane.py): directives at
+    #: ``snapshot.chunk`` corrupt ("torn") or withhold ("drop") a served
+    #: chunk's WIRE bytes only — the encode-once cache and the durable
+    #: blobs stay intact, so the client's hash check trips and its
+    #: legacy-tree fallback still converges
+    fault_plane = None
+
     def __init__(self, server: Optional[LocalServer] = None,
                  host: str = "127.0.0.1", port: int = 0,
                  max_message_size: Optional[int] = None,
@@ -1838,6 +1867,13 @@ class NetworkFrontEnd:
         # is bound and the shard host registered in the epoch table)
         self.rebalancer = None
         self._rebalance_cfg: Optional[dict] = None
+        # live health plane (--probe): a canary prober walking this
+        # core's own doors + a HealthEngine running the doctor's rules
+        # continuously. Config stored here; both start in _start once
+        # the bound address exists (the canary dials it).
+        self.prober = None
+        self.health_engine = None
+        self._health_cfg: Optional[dict] = None
         # live _ClientSessions (lease-loss teardown walks these)
         self._sessions: set = set()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -1846,12 +1882,24 @@ class NetworkFrontEnd:
         self._aio_server: Optional[asyncio.base_events.Server] = None
 
     def enable_admission(self) -> AdmissionController:
-        """The admission gate: its per-tenant rates live in the tenant
-        registry, and its burn signal in the SLO engine (ROADMAP A10)."""
-        raise _not_ported("admission control", "A10")
+        """The admission gate, created on first use; rates are re-read
+        from the tenant registry per boxcar so runtime changes apply."""
+        if self.admission is None:
+            self.admission = AdmissionController(self._rate_for)
+        return self.admission
+
+    def _rate_for(self, tenant: str):
+        tm = self.server.tenants
+        return None if tm is None else tm.rate_for(tenant)
 
     def attach_slo(self, engine, shedding: bool = True) -> "NetworkFrontEnd":
-        raise _not_ported("SLO engine", "A10")
+        """Close the loop: the engine's windowed verdicts arm (or, with
+        ``shedding=False``, merely observe) the admission gate."""
+        self.slo_engine = engine
+        adm = self.enable_admission()
+        adm.engine = engine
+        adm.shedding = shedding
+        return self
 
     def enable_boot_admission(self, boots_per_s: float = 200.0,
                               burst: int = 32) -> "NetworkFrontEnd":
@@ -1920,7 +1968,189 @@ class NetworkFrontEnd:
                       probe_fail_critical: int = 3,
                       probe_timeout: float = 5.0,
                       max_route_peers: int = 2) -> "NetworkFrontEnd":
-        raise _not_ported("live health plane (--probe)", "A10")
+        """Arm the live health plane (--probe): stored as config here;
+        the prober and engine start in ``_start`` once the socket is
+        bound (the canary dials our own listening address) and — on a
+        sharded core — the first poll has claimed partitions, so the
+        canary doc routes."""
+        self._health_cfg = {
+            "probe_tick_s": probe_tick_s, "tick_s": tick_s,
+            "critical_ticks": critical_ticks,
+            "probe_fail_critical": probe_fail_critical,
+            "probe_timeout": probe_timeout,
+            "max_route_peers": max_route_peers}
+        return self
+
+    def _arm_health(self) -> None:
+        """Construct + start the canary prober and the health engine.
+
+        Every engine source closes over LIVE surfaces and returns the
+        bundle-shaped artifact the doctor would read offline — that is
+        what makes the offline/live equivalence test possible. The
+        prober's transport is the driver's ``_Transport`` (a real
+        client dial, not a shortcut into the pipeline: the probe must
+        traverse the same socket, reader thread, and frame codec a
+        user does)."""
+        from ..driver.network import _Transport
+        from ..obs.health import HealthEngine
+        from ..obs.probe import CANARY_DOC, CanaryProber
+
+        cfg = self._health_cfg or {}
+        sh = self.shard_host
+        owner = sh.owner_id if sh is not None else "fe"
+        timeout = cfg.get("probe_timeout", 5.0)
+
+        def dial(host, port, timeout=timeout):
+            return _Transport(host, port, timeout=timeout)
+
+        def doc_fn():
+            # a canary doc routed to THIS core: sharded cores refuse
+            # docs whose partition they don't own, so walk suffixes
+            # until one hashes into our claims (None while we own
+            # nothing — the session doors idle, not fail)
+            if sh is None:
+                return CANARY_DOC
+            from .stage_runner import doc_partition
+
+            owned = set(sh.servers)
+            if not owned:
+                return None
+            for i in range(64):
+                doc = f"{CANARY_DOC}{i}"
+                if doc_partition(CANARY_TENANT, doc, sh.n) in owned:
+                    return doc
+            return None
+
+        def peers_fn():
+            if sh is None:
+                return {}
+            try:
+                rec = sh.table.read()
+            except Exception:  # noqa: BLE001 — table read is advisory
+                return {}
+            # membership is append-only (a capacity advertisement, not
+            # a route): a kill -9'd core's row outlives it forever.
+            # Route-probe only owners a gateway would actually traverse
+            # — those holding ≥1 partition NOW — so a replaced core's
+            # stale row stops counting against fleet health the moment
+            # its partitions are re-claimed.
+            routed = {p.get("owner")
+                      for p in (rec.get("parts") or {}).values()}
+            return {o: {"addr": row.get("addr"),
+                        "host": row.get("host")}
+                    for o, row in (rec.get("cores") or {}).items()
+                    if o in routed}
+
+        def token_fn(tenant, doc):
+            # canary auth: mint against a per-process secret, and
+            # re-assert the registration per mint — the shared-registry
+            # reload on the lease poll replaces the dict and would
+            # silently drop us. On open (dev-mode) deployments we must
+            # NOT register: the first registration flips tenancy to
+            # enforcing and locks every real client out.
+            tm = self.server.tenants
+            if tm is None or not tm.enforcing:
+                return None
+            from .tenants import sign_token
+
+            tm.register(CANARY_TENANT, self._canary_secret)
+            return sign_token(tenant, doc, self._canary_secret)
+
+        import secrets as _secrets
+
+        self._canary_secret = _secrets.token_hex(16)
+        self.prober = CanaryProber(
+            dial, self.host, self.port, core=owner,
+            doc_fn=doc_fn,
+            peers_fn=peers_fn if sh is not None else None,
+            token_fn=token_fn,
+            tick_s=cfg.get("probe_tick_s", 2.0), timeout=timeout,
+            snapshot=True,
+            max_route_peers=cfg.get("max_route_peers", 2)).start()
+
+        def boot_fn():
+            from ..obs import tier_snapshot
+
+            if sh is not None:
+                parts = [s.boot_status()
+                         for _, s in sorted(sh.servers.items())]
+                rehydrator = sh.rehydrator
+            else:
+                parts = [self.server.boot_status()]
+                rehydrator = self.server.rehydrator
+            return {"parts": parts,
+                    "executor": (rehydrator.status()
+                                 if rehydrator is not None else None),
+                    "counters": {k: v for k, v in
+                                 tier_snapshot("frontend").items()
+                                 if k.startswith("boot.part.")}}
+
+        def slo_fn():
+            eng = self.slo_engine
+            return {"slos": eng.status() if eng is not None else []}
+
+        self.health_engine = HealthEngine(
+            core=owner,
+            scrape_fn=get_registry().scrape,
+            journal_fn=lambda: get_journal().tail(n=400),
+            placement_fn=(sh.table.read if sh is not None else None),
+            cores_fn=self.prober.peer_rows,
+            slo_fn=slo_fn,
+            boot_fn=boot_fn,
+            probe_fn=self.prober.status,
+            # a deliberately-unarmed journal (in-process fleets,
+            # bare dev cores) is config, not a failure: report
+            # journal_armed only when it IS armed, so the doctor's
+            # disarmed rule (written for bundles, where a core that
+            # SHOULD journal didn't) stays quiet live
+            self_row_fn=lambda: (
+                {"journal_armed": True} if get_journal().armed else {}),
+            tick_s=cfg.get("tick_s", 1.0),
+            critical_ticks=cfg.get("critical_ticks", 3),
+            probe_fail_critical=cfg.get("probe_fail_critical", 3),
+        ).start()
+
+    def _fleet_health(self, table_rec: dict, local: dict) -> dict:
+        """Fleet verdict: this core's health joined with every peer
+        core's (``admin_health`` fan-out) — worst verdict wins, and an
+        UNREACHABLE peer is critical, not skipped: the go/no-go gate
+        must fail closed, a dead core cannot answer "I'm fine"."""
+        from .placement_plane import admin_rpc
+
+        order = {"ok": 0, "unknown": 1, "degraded": 2, "critical": 3}
+        self_owner = (self.shard_host.owner_id
+                      if self.shard_host is not None else None)
+        cores = {local.get("core") or "": local}
+        worst = local.get("verdict", "unknown")
+        # same routed-owner filter as the prober's peers_fn: membership
+        # rows never expire, so gate only on cores that currently hold
+        # partitions — a kill -9'd core's stale row must not hold the
+        # fleet at critical after its replacement claimed its parts
+        routed = {p.get("owner")
+                  for p in (table_rec.get("parts") or {}).values()}
+        for owner, row in sorted(
+                (table_rec.get("cores") or {}).items()):
+            if owner == self_owner or owner not in routed:
+                continue
+            host_s, _, port_s = row.get("addr", "").rpartition(":")
+            frame = {"t": "admin_health"}
+            if self.admin_secret:
+                frame["secret"] = self.admin_secret
+            try:
+                reply = admin_rpc(host_s or "127.0.0.1", int(port_s),
+                                  frame, timeout=5.0)
+                h = dict(reply.get("health") or {})
+                h.setdefault("core", owner)
+            except (OSError, ValueError, RuntimeError) as e:
+                h = {"core": owner, "verdict": "critical",
+                     "armed": False,
+                     "reasons": [f"core {owner}: admin_health "
+                                 f"unreachable ({e})"]}
+            cores[owner] = h
+            if (order.get(h.get("verdict"), 1)
+                    > order.get(worst, 1)):
+                worst = h.get("verdict")
+        return {"fleet": True, "verdict": worst, "cores": cores}
 
     def _fleet_placement_counters(self, table_rec: dict) -> dict:
         """Fleet-total placement counters: this process's snapshot summed
@@ -2273,6 +2503,10 @@ class NetworkFrontEnd:
                         self.logger.error("lease_poll_error",
                                           message=str(e))
             self._bg_tasks.append(loop.create_task(lease_loop()))
+        if self._health_cfg is not None:
+            # after the first poll: the canary doc must route to a
+            # claimed partition, and peers must see our address
+            self._arm_health()
         self._ready.set()
 
     def start_background(self) -> "NetworkFrontEnd":
@@ -2296,6 +2530,12 @@ class NetworkFrontEnd:
         if self.rebalancer is not None:
             self.rebalancer.stop()
             self.rebalancer = None
+        if self.prober is not None:
+            self.prober.stop()
+            self.prober = None
+        if self.health_engine is not None:
+            self.health_engine.stop()
+            self.health_engine = None
         if self._loop is not None:
             loop = self._loop
 
@@ -2357,6 +2597,41 @@ class NetworkFrontEnd:
         loop.run_forever()
 
 
+def _apply_overload_flags(front: "NetworkFrontEnd", args, parser) -> None:
+    """Arm the overload-control loop from the CLI flags: per-tenant
+    rate caps into the tenant registry, SLO specs into a ticking
+    engine attached to the admission gate."""
+    if args.tenant_rate:
+        from .tenants import TenantManager
+
+        tm = front.server.tenants
+        if tm is None:
+            # rates alone must NOT flip tenancy to enforcing — the
+            # registry stays secret-less (open auth) and only carries
+            # the budgets
+            tm = front.server.tenants = TenantManager()
+            for server in front._all_servers():
+                server.tenants = tm
+        for spec in args.tenant_rate:
+            parts = spec.split(":")
+            try:
+                tm.set_rate(parts[0], float(parts[1]),
+                            float(parts[2]) if len(parts) > 2 else None)
+            except (IndexError, ValueError):
+                parser.error(f"bad --tenant-rate {spec!r} "
+                             "(want ID:RATE[:BURST])")
+        front.enable_admission()
+    if args.slo:
+        from ..obs.slo import SloEngine, parse_slo_spec
+
+        try:
+            specs = [parse_slo_spec(s) for s in args.slo]
+        except ValueError as e:
+            parser.error(str(e))
+        front.attach_slo(SloEngine(specs).start(),
+                         shedding=not args.no_shed)
+
+
 def main() -> None:
     import gc
 
@@ -2410,15 +2685,15 @@ def main() -> None:
     parser.add_argument("--tenant-rate", action="append", default=[],
                         metavar="ID:RATE[:BURST]",
                         help="cap a tenant's admission rate in ops/s "
-                             "(not ported, ROADMAP A10)")
+                             "(unlisted tenants stay unlimited)")
     parser.add_argument("--slo", action="append", default=[],
                         metavar="NAME=PAIR[@TENANT]:BUDGET_MS"
                                 "[:WINDOW_S[:BURN_TICKS]]",
-                        help="arm a windowed p99 SLO (not ported, "
-                             "ROADMAP A10)")
+                        help="arm a windowed p99 SLO; a sustained burn "
+                             "sheds over-budget tenants")
     parser.add_argument("--no-shed", action="store_true",
-                        help="evaluate SLOs but never shed (not "
-                             "ported, ROADMAP A10)")
+                        help="evaluate SLOs but never shed (the "
+                             "overload bench's control arm)")
     parser.add_argument("--summarize-every", type=int, default=None,
                         metavar="N",
                         help="run the service summarizer loop: a new "
@@ -2445,8 +2720,10 @@ def main() -> None:
     # through this core's own doors + the doctor's rules evaluated
     # continuously, served by the admin_health RPC
     parser.add_argument("--probe", action="store_true",
-                        help="arm the live health plane (not ported, "
-                             "ROADMAP A10)")
+                        help="arm the live health plane: a canary "
+                             "prober walking this core's doors on the "
+                             "reserved __canary__ tenant plus the "
+                             "streaming doctor (admin_health)")
     parser.add_argument("--probe-tick", type=float, default=2.0,
                         metavar="S", help="canary probe interval")
     parser.add_argument("--health-tick", type=float, default=1.0,
@@ -2476,12 +2753,6 @@ def main() -> None:
                         metavar="N",
                         help="boot-storm admission burst size")
     args = parser.parse_args()
-    for flag, value in (("--tenant-rate", args.tenant_rate),
-                        ("--slo", args.slo), ("--no-shed", args.no_shed),
-                        ("--probe", args.probe)):
-        if value:
-            # the overload and health plane (obs/slo.py, obs/health.py)
-            raise _not_ported(f"option {flag}", "A10")
     if args.rebalance and args.shard_dir is None and args.topology is None:
         parser.error("--rebalance requires --shard-dir")
     if args.topology is not None or args.shard_dir is not None:
@@ -2532,6 +2803,14 @@ def main() -> None:
         front = build_core(spec, core_index)
         if args.max_message_size is not None:
             front.max_message_size = args.max_message_size
+        _apply_overload_flags(front, args, parser)
+        if args.probe and front._health_cfg is None:
+            # flag-armed on top of a spec without a health stanza
+            # (spec.health goes through build_core)
+            front.enable_health(
+                probe_tick_s=args.probe_tick,
+                tick_s=args.health_tick,
+                critical_ticks=args.health_critical_ticks)
         front.serve_forever()
         return
     server = None
@@ -2581,6 +2860,11 @@ def main() -> None:
     front = NetworkFrontEnd(server=server, host=args.host, port=args.port,
                             max_message_size=args.max_message_size,
                             admin_secret=args.admin_secret)
+    _apply_overload_flags(front, args, parser)
+    if args.probe:
+        front.enable_health(probe_tick_s=args.probe_tick,
+                            tick_s=args.health_tick,
+                            critical_ticks=args.health_critical_ticks)
     if args.summarize_every is not None:
         front.enable_summarizer(args.summarize_every)
     for state_dir in args.consume_backchannel:

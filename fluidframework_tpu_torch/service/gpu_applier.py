@@ -136,6 +136,7 @@ from ..parallel.sharded_apply import (
 )
 from ..protocol.messages import MessageType
 from ..utils.affinity import blocking
+from .scriptorium import channel_stream  # noqa: F401  (torch-free home)
 
 MARKER_GLYPH = "￼"  # arena placeholder byte for markers (flags classify)
 
@@ -143,34 +144,6 @@ INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
 _TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
                 np.dtype(np.int32): torch.int32}
-
-
-def channel_stream(server, tenant_id: str, document_id: str,
-                   ds_id: str, channel_id: str, from_seq: int = 0):
-    """Extract one channel's merge-tree messages from the document's
-    sequenced op log (scriptorium) — the applier's replay source and the
-    scribe-replay entry point.
-
-    Truncated logs raise (scriptorium.LogTruncatedError): with log
-    retention active, a from-zero replay would silently rebuild WRONG
-    state once ops behind an acked summary have been dropped. Reads go
-    straight through a stateless ScriptoriumLambda over the db so
-    inspecting a doc never lazily constructs its whole pipeline."""
-    from .scriptorium import ScriptoriumLambda
-
-    for m in ScriptoriumLambda(server.db).get_deltas(
-            tenant_id, document_id, from_seq, 10**9):
-        if m.type != MessageType.OPERATION:
-            continue
-        env = m.contents
-        if not isinstance(env, dict) or env.get("kind") != "chanop":
-            continue
-        if env["address"] != ds_id:
-            continue
-        inner = env["contents"]
-        if inner.get("address") != channel_id or "attach" in inner:
-            continue
-        yield replace(m, contents=inner["contents"])
 
 
 class _StagedWave:

@@ -11,7 +11,9 @@ delta-backfill path new/reconnecting clients use to catch up
 
 from __future__ import annotations
 
-from ..protocol.messages import SequencedDocumentMessage
+from dataclasses import replace
+
+from ..protocol.messages import MessageType, SequencedDocumentMessage
 from .core import InMemoryDb, QueuedMessage
 
 
@@ -167,3 +169,35 @@ class ScriptoriumLambda:
             out.extend(entry.messages()[start:stop])
             i += stop - start
         return out
+
+
+def channel_stream(server, tenant_id: str, document_id: str,
+                   ds_id: str, channel_id: str, from_seq: int = 0):
+    """Extract one channel's merge-tree messages from the document's
+    sequenced op log (scriptorium) — the applier's replay source and the
+    scribe-replay entry point.
+
+    Truncated logs raise (scriptorium.LogTruncatedError): with log
+    retention active, a from-zero replay would silently rebuild WRONG
+    state once ops behind an acked summary have been dropped. Reads go
+    straight through a stateless ScriptoriumLambda over the db so
+    inspecting a doc never lazily constructs its whole pipeline.
+
+    The JAX package keeps it in ``service/tpu_applier.py``; the port
+    keeps it here, in a module that imports no torch, so that a core's
+    summary path (``HostReplicaSource``) does not import torch on its
+    event loop (``gpu_applier`` re-exports it).
+    """
+    for m in ScriptoriumLambda(server.db).get_deltas(
+            tenant_id, document_id, from_seq, 10**9):
+        if m.type != MessageType.OPERATION:
+            continue
+        env = m.contents
+        if not isinstance(env, dict) or env.get("kind") != "chanop":
+            continue
+        if env["address"] != ds_id:
+            continue
+        inner = env["contents"]
+        if inner.get("address") != channel_id or "attach" in inner:
+            continue
+        yield replace(m, contents=inner["contents"])

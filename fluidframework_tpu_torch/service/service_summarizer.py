@@ -93,7 +93,7 @@ class HostReplicaSource:
 
     def _ingest(self, tenant_id: str, document_id: str):
         from ..mergetree.client import MergeTreeClient
-        from .gpu_applier import channel_stream
+        from .scriptorium import channel_stream
 
         key = (tenant_id, document_id)
         replica = self._replicas.get(key)

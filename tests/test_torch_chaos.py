@@ -1,10 +1,9 @@
 """The port's chaos plane, invariant monitor, seams and soak phase A on
 the CPU, and against the JAX package's.
 
-The plane, monitor, seam, install and torn/dup/rewind tests of
-``tests/test_chaos.py`` (without the sharded core's partition seam and
-the socket transport's hook, which the port does not have), run on the
-port; the quick phase-A soak and its two self-tests with the device
+The plane, monitor, seam, install (the front end's snapshot seam and
+the socket transport's frame hook included) and torn/dup/rewind tests
+of ``tests/test_chaos.py`` run on the port; the quick phase-A soak and its two self-tests with the device
 stage's applier on the CPU; and the port's seed-0 quick soak against the
 JAX package's: the same coverage, observed and redelivered counts, chaos
 counters and final fingerprints of every replica, exactly, with the
@@ -14,6 +13,7 @@ auto-heal) against the JAX package's: the same verdict, counters and
 fingerprints.
 """
 
+import inspect
 import json
 
 import pytest
@@ -222,6 +222,11 @@ def test_seams_disarmed_by_default():
     assert _StageHostBase.fault_plane is None
     assert ServiceSummarizer.fault_plane is None
     assert HistoryPlane.fault_plane is None
+    from fluidframework_tpu_torch.driver import network
+    from fluidframework_tpu_torch.service.front_end import NetworkFrontEnd
+
+    assert NetworkFrontEnd.fault_plane is None
+    assert network.FRAME_FAULT_HOOK is None
 
 
 def test_install_arms_and_uninstall_restores():
@@ -234,19 +239,28 @@ def test_install_arms_and_uninstall_restores():
     from fluidframework_tpu_torch.service.history_plane import HistoryPlane
     from fluidframework_tpu_torch.service.local_server import LocalServer
 
+    from fluidframework_tpu_torch.driver import network
+    from fluidframework_tpu_torch.service.front_end import NetworkFrontEnd
+
     server = LocalServer()
     app = GpuDocumentApplier(max_docs=2, max_slots=8, device="cpu")
+    front = NetworkFrontEnd(server)
     plane = FaultPlane(0)
-    uninstall = install(plane, server=server, appliers=[app])
+    uninstall = install(plane, server=server, appliers=[app],
+                        fronts=[front], transports=True)
     assert server.log.fault_plane is plane
     assert BroadcasterLambda.fault_plane is plane
     assert HistoryPlane.fault_plane is plane
     assert app.fault_plane is plane
+    assert front.fault_plane is plane
+    assert network.FRAME_FAULT_HOOK is plane
     uninstall()
     assert server.log.fault_plane is None
     assert BroadcasterLambda.fault_plane is None
     assert HistoryPlane.fault_plane is None
     assert "fault_plane" not in vars(app)
+    assert "fault_plane" not in vars(front)
+    assert network.FRAME_FAULT_HOOK is None
 
 
 def test_torn_append_drops_the_record():
@@ -354,12 +368,20 @@ def test_soak_fails_when_recovery_disabled():
 
 
 def test_soak_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_soak(seed=0, quick=True, phases="ab", device="cpu")
-    # the device stage runs on the card unless told otherwise
+    """Both phases run by default (as in the JAX soak); phase A's device
+    stage runs on the card unless told otherwise, and a machine with no
+    card refuses it before phase B starts its sockets."""
+    from fluidframework_tpu_torch.chaos import soak
+
+    ran_b = []
+    monkeypatch.setattr(soak, "run_phase_b",
+                        lambda *a, **k: ran_b.append(1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_soak(seed=0, quick=True)
+    assert not ran_b
+    assert inspect.signature(run_soak).parameters["phases"].default \
+        == "ab"
 
 
 def _soak(pkg: str, seed: int, monkeypatch, mesh_shards: int = 0) -> dict:

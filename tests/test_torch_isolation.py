@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no module of the JAX package, no silent
 CPU fallback.
 
-Every module of ``fluidframework_tpu_torch`` and ``chip_smoke.py`` is
-parsed, and no import may name ``jax``, ``jaxlib`` or the module
+Every module of ``fluidframework_tpu_torch``, ``chip_smoke.py`` and
+``driver_client_bench.py`` is parsed, and no import may name ``jax``, ``jaxlib`` or the module
 ``fluidframework_tpu`` (or a submodule of it), and no string a file could
 run as a child's command line names a module of the JAX package. The op
 log is built only from the port's own C++ source. The kernel path refuses
@@ -25,7 +25,8 @@ from fluidframework_tpu_torch.service.gpu_applier import GpuDocumentApplier
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(fluidframework_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "fluidframework_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "driver_client_bench.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -101,6 +102,55 @@ SHARDED = ("service/tenants.py", "service/placement.py",
            "service/deli.py", "service/local_orderer.py",
            "service/local_server.py", "service/front_end.py",
            "service/gateway.py", "service/storage_server.py")
+
+
+#: the overload, health and recovery plane: the SLO and health engines
+#: with the port's own copy of the doctor's rules, the three campaigns,
+#: the foreman and the copier, and the modules that gained their seams
+OVERLOAD_AND_HEALTH = ("obs/doctor_rules.py", "obs/slo.py", "obs/health.py",
+                       "chaos/noisy.py", "chaos/coldstart.py",
+                       "chaos/multihost.py", "service/foreman.py",
+                       "service/copier.py", "chaos/hooks.py",
+                       "chaos/soak.py", "service/front_end.py",
+                       "service/admission.py", "driver/network.py",
+                       "service/scriptorium.py")
+
+
+def test_sources_cover_the_overload_and_health_plane():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(OVERLOAD_AND_HEALTH)
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
+def _reaches_outside(path: Path) -> list:
+    """Imports of the repo's ``tools`` package, and any ``sys.path``
+    edit, in one file."""
+    bad = [n for n in _imports(path)
+           if n == "tools" or n.startswith("tools.")]
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if (isinstance(node, ast.Attribute) and node.attr == "path"
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "sys"):
+            bad.append(f"sys.path (line {node.lineno})")
+    return bad
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_reach_into_tools(path):
+    """The port keeps its own copy of what it needs (the doctor's rules
+    are ``obs/doctor_rules.py``): no file imports the repo's ``tools``
+    or edits ``sys.path`` to reach it."""
+    bad = _reaches_outside(path)
+    assert not bad, f"{path.relative_to(ROOT)} reaches {bad}"
+
+
+def test_reach_check_sees_the_jax_health_engine():
+    """The check is not vacuous: the JAX engine's ``sys.path`` insert
+    into ``tools/`` is what it refuses."""
+    bad = _reaches_outside(ROOT / "fluidframework_tpu" / "obs" / "health.py")
+    assert "tools.doctor_rules" in bad
+    assert any(b.startswith("sys.path") for b in bad)
 
 
 def test_sources_cover_the_sharded_core():

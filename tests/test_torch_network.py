@@ -8,8 +8,9 @@ wire between the packages: a JAX client against the port's front end and
 a port client against the JAX front end converge to the same texts, and
 the same scripted edits into a JAX and a port front end leave equal
 sequenced streams (client ids mapped by first appearance; timestamps and
-trace hops are wall-clock and not compared). Options the port does not
-carry yet raise ``NotImplementedError`` naming their ROADMAP item.
+trace hops are wall-clock and not compared). Every option of the front
+end's ``main()`` builds a core, and the overload and health plane's
+doors arm on it.
 """
 
 from __future__ import annotations
@@ -134,8 +135,9 @@ def test_map_over_network(loader):
     m1.set("n", 5)
     assert wait_for(lambda: c2.runtime.get_data_store("default")
                     .get_channel("kv").get("key") == {"nested": [1, 2]})
-    assert c2.runtime.get_data_store("default").get_channel("kv").get(
-        "n") == 5
+    # "n" is a later op: it may reach c2 in a later broadcast frame
+    assert wait_for(lambda: c2.runtime.get_data_store("default")
+                    .get_channel("kv").get("n") == 5)
 
 
 def test_oversized_message_nacked_not_sequenced(front_end, loader):
@@ -539,31 +541,35 @@ def test_scripted_streams_equal_jax():
         assert port[doc] == jax[doc], doc
 
 
-# ------------------------------------------------ what is not ported
+# ------------------------------------------------ the front end's options
 
 
 @pytest.mark.parametrize("flag,item", [
-    # the sharded core's flags now work (alone or beside the storage
-    # tier's): main() builds the core and serves it; the overload and
-    # health plane still refuses, naming its ROADMAP item
+    # every flag of main() builds a core: the sharded core's flags (alone
+    # or beside the storage tier's) a sharded one; the overload and
+    # health plane's flags arm their planes on it
     (["--storage-server", "1", "--shard-dir", "x"], "sharded"),
     (["--external-scribe", "--shards", "2"], "single"),
     (["--storage-dir", "x", "--prefer", "0"], "single"),
     (["--tenant", "a:b"], "single"),
-    (["--tenant-rate", "a:5"], "A10"), (["--slo", "x"], "A10"),
-    (["--probe"], "A10"), (["--shard-dir", "x"], "sharded"),
+    (["--tenant-rate", "a:5"], "admission"),
+    (["--slo", "ingest=submit_to_admit:25:5:2"], "slo"),
+    (["--probe"], "health"), (["--shard-dir", "x"], "sharded"),
     (["--topology", "spec.json"], "sharded"), (["--rebalance"], "refused"),
     (["--shards", "2"], "single"), (["--prefer", "0"], "single"),
-    (["--lease-ttl", "5"], "single"), (["--no-shed"], "A10")])
+    (["--lease-ttl", "5"], "single"), (["--no-shed"], "single")])
 def test_unported_front_end_options_raise(monkeypatch, tmp_path, flag,
                                           item):
-    """Each flag of ``main()``: the overload and health plane raises
-    ``NotImplementedError`` naming A10; the sharded core's flags build a
-    sharded core (``--rebalance`` without a shard dir is refused, as in
-    the JAX package); the others serve the single pipeline."""
+    """Each flag of ``main()``: the sharded core's flags build a sharded
+    core (``--rebalance`` without a shard dir is refused, as in the JAX
+    package); ``--tenant-rate`` gives the tenant a budget and builds the
+    admission gate, ``--slo`` a ticking SLO engine attached to it,
+    ``--probe`` the health plane's config (armed once the core serves);
+    ``--no-shed`` alone changes nothing; the others serve the single
+    pipeline."""
     import gc
 
-    from fluidframework_tpu_torch.obs import reset_journal
+    from fluidframework_tpu_torch.obs import get_journal, reset_journal
     from fluidframework_tpu_torch.service import front_end
     from fluidframework_tpu_torch.service.topology import default_spec
 
@@ -577,37 +583,67 @@ def test_unported_front_end_options_raise(monkeypatch, tmp_path, flag,
                         lambda self: served.append(self))
     monkeypatch.setattr(sys, "argv", ["front_end", "--port", "0", *flag])
     try:
-        if item == "A10":
-            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-                front_end.main()
-        elif item == "refused":
+        if item == "refused":
             with pytest.raises(SystemExit):
                 front_end.main()
         else:
             front_end.main()
     finally:
         reset_journal()
-    if item in ("A10", "refused"):
+        # a sharded core's journal keeps the registry its first emit
+        # found: a later test's reset_registry would strand it
+        get_journal()._registry = None
+    if item == "refused":
         assert not served
         return
     (front,) = served
     assert (front.shard_host is not None) == (item == "sharded")
     if flag == ["--tenant", "a:b"]:
         assert front.server.tenants.list_tenants() == ["a"]
+    assert (front.admission is not None) == (item in ("admission", "slo"))
+    if item == "admission":
+        assert front._rate_for("a")[0] == 5.0
+        # rates alone leave tenancy open (no secret registered)
+        assert not front.server.tenants.enforcing
+    if item == "slo":
+        engine = front.slo_engine
+        engine.stop()
+        assert front.admission.engine is engine and front.admission.shedding
+        assert [s.name for s in engine.specs] == ["ingest"]
+    assert (front._health_cfg is not None) == (item == "health")
+    assert front.prober is None and front.health_engine is None
 
 
 def test_unported_front_end_planes_raise(tmp_path):
-    """The overload and health plane still raises; boot admission and
-    the rebalancer are the JAX package's (the rebalancer needs a sharded
-    core), and ``NetworkFrontEnd(shard_host=)`` serves the sharded core.
-    """
+    """The overload and health plane's doors work: ``enable_admission``
+    builds one gate reading the tenant registry, ``attach_slo`` arms it
+    with an engine (or, ``shedding=False``, only observes),
+    ``enable_health`` stores the prober's and engine's config; boot
+    admission and the rebalancer are the JAX package's (the rebalancer
+    needs a sharded core), and ``NetworkFrontEnd(shard_host=)`` serves
+    the sharded core."""
+    from fluidframework_tpu_torch.obs.slo import SloEngine, SloSpec
+    from fluidframework_tpu_torch.service.admission import (
+        AdmissionController,
+    )
     from fluidframework_tpu_torch.service.front_end import ShardHost
+    from fluidframework_tpu_torch.service.tenants import TenantManager
 
-    fe = NetworkFrontEnd(LocalServer())
-    for call in (fe.enable_admission, fe.enable_health,
-                 lambda: fe.attach_slo(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            call()
+    tm = TenantManager()
+    tm.set_rate("acme", 10.0, 20.0)
+    fe = NetworkFrontEnd(LocalServer(tenants=tm))
+    adm = fe.enable_admission()
+    assert isinstance(adm, AdmissionController)
+    assert fe.enable_admission() is adm
+    assert fe._rate_for("acme") == tm.rate_for("acme")
+    assert fe._rate_for("other") is None
+    engine = SloEngine([SloSpec("x", "submit_to_admit", 1.0)])
+    assert fe.attach_slo(engine, shedding=False) is fe
+    assert fe.slo_engine is engine and adm.engine is engine
+    assert adm.shedding is False
+    assert fe.enable_health(probe_tick_s=0.5) is fe
+    assert fe._health_cfg["probe_tick_s"] == 0.5
+    assert fe.prober is None and fe.health_engine is None
     with pytest.raises(ValueError, match="requires a sharded core"):
         fe.enable_rebalancer()
     assert fe.enable_boot_admission() is fe

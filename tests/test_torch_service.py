@@ -267,3 +267,43 @@ def test_orderer_restart_matches_jax():
                                    {}))
     assert len(streams[0]) == 2 + 36
     assert streams[0] == streams[1]
+
+
+def _copier_archive(root: str) -> tuple:
+    """One package's copier on a doc's raw topic: a good boxcar, then a
+    clientSeq gap deli refuses. Returns the archive's kinds and
+    clientSeqs, the copied count and whether deli nacked."""
+    from importlib import import_module
+
+    msgs = import_module(f"{root}.protocol.messages")
+    server = import_module(f"{root}.service.local_server").LocalServer()
+    copier = import_module(f"{root}.service.copier").CopierLambda(server.db)
+    conn = server.connect("t", "doc")
+    orderer = server._get_orderer("t", "doc")
+    server.log.subscribe(orderer.raw_topic, copier.handler, from_offset=0)
+
+    def submit(cseq, contents):
+        conn.submit([msgs.DocumentMessage(
+            client_sequence_number=cseq, reference_sequence_number=0,
+            type=msgs.MessageType.OPERATION, contents=contents)])
+
+    submit(1, {"good": 1})
+    nacks = []
+    conn.on_nack = nacks.append
+    submit(9, {"bad": 1})  # a clientSeq gap
+    rows = copier.archive("t", "doc")
+    kinds = [(r["kind"], r.get("clientSeq") or
+              (r["ops"][0]["clientSeq"] if r.get("ops") else None))
+             for r in rows]
+    return kinds, copier.copied == len(rows), bool(nacks)
+
+
+def test_copier_archives_raw_traffic_including_rejected():
+    """The port's copier (``service/copier.py``) keeps what deli nacked
+    too, and archives the same records as the JAX package's copier."""
+    kinds, counted, nacked = _copier_archive("fluidframework_tpu_torch")
+    assert nacked and counted
+    assert ("raw", -1) in kinds
+    assert ("boxcar", 1) in kinds
+    assert ("boxcar", 9) in kinds
+    assert (kinds, counted, nacked) == _copier_archive("fluidframework_tpu")

@@ -133,3 +133,36 @@ def stored(server) -> dict:
         out["log:" + topic] = [canonical(server.log.read(topic, i))
                                for i in range(server.log.length(topic))]
     return out
+
+
+def token_campaign(root: str, name: str, seed: int, monkeypatch) -> dict:
+    """One quick ``chaos.coldstart``/``chaos.multihost`` campaign of the
+    package ``root`` and what its seed fixes: the docs, the token count,
+    and each doc's final text as its verifier read it, split into
+    tokens (every writer's token exactly once, nothing else); plus the
+    campaign's boot counters and injections."""
+    from importlib import import_module
+
+    campaign = import_module(f"{root}.chaos.{name}")
+    token_client = import_module(f"{root}.chaos.coldstart").TokenClient
+    counters = import_module(f"{root}.utils.telemetry").Counters
+    clients = []
+    connect = token_client.connect
+
+    def recording_connect(self):
+        connect(self)
+        clients.append(self)
+
+    monkeypatch.setattr(token_client, "connect", recording_connect)
+    out = campaign.run_campaign(seed, counters(), quick=True)
+    monkeypatch.undo()
+    writers = {c.doc: sorted(c.tokens) for c in clients if c.tokens}
+    final = {}
+    for c in clients:
+        if not c.tokens:  # a verifier: booted after recovery, sent nothing
+            final[c.doc] = sorted(c.container.runtime.get_data_store(
+                "default").get_channel("text").get_text().split())
+    assert final == writers, (final, writers)
+    return {"docs": out["docs"], "tokens": out["tokens"], "final": final,
+            "boot": out["boot"], "counters": out["counters"],
+            "crashed": out.get("boot_crashed_cores")}
