@@ -33,6 +33,18 @@ GC; ``soak`` runs chaos soak phase A at seeds 0, 7 and 42 with its
 device stage on the card; ``replay`` replays the three recorded docs of
 ``tests/corpus`` through the farm on the card and through the client
 stack.
+Then the client application layer: ``apps`` makes 1024 app documents
+(BASELINE config 1: the shared-text ``DataObject`` with a root
+``SharedDirectory``, a title ``SharedCell``, a body ``SharedString`` and
+a ``SharedCounter``) of 2 clients each, whose body streams the async card
+farm (D=1024, S=256, K=32) ingests round by round, held row for row
+against a CPU applier and text for text against both clients; the
+service summarizer refuses every app doc, and each doc's client summary
+boots a third container. It then runs BASELINE config 3 (a 1000 x 1000
+``SharedMatrix``, 8 clients, concurrent cell edits and a row insert, an
+undo and a redo) and the corpus recorder (``replay.record``) with its
+three replays on the card, whose ``expect.json`` files must equal the
+committed corpus's.
 Then the parallel layer: ``mesh`` drives the main path's farm (D=1024,
 S=256, K=32, seed 42) on a mesh of 4 docs shards (on 4 cards where the
 machine has them, else all on the first card; the phase prints which),
@@ -1433,12 +1445,13 @@ def _texts(app, n_docs: int) -> list:
     return [app.get_text("t", f"doc{d}") for d in range(n_docs)]
 
 
-def _state_rows(app, n_docs: int) -> dict:
+def _state_rows(app, n_docs: int, tenant: str = "t") -> dict:
     """Every doc's state row, read back once: field -> [n_docs, ...]."""
     from fluidframework_tpu_torch.ops.doc_state import FIELDS
 
     app.finalize()
-    rows = np.array([app.slot_of("t", f"doc{d}") for d in range(n_docs)])
+    rows = np.array([app.slot_of(tenant, f"doc{d}")
+                     for d in range(n_docs)])
     state = app.state
     return {f: getattr(state, f).cpu().numpy()[rows] for f in FIELDS}
 
@@ -1930,6 +1943,292 @@ def phase_replay(power: str, device: str = "cuda"):
            "client_stack_seconds": stack_seconds, "launches": launches,
            "texts_match": True, "fingerprints_match": True, "card": power}
     emit(row)
+    return launches
+
+
+#: the apps phase: BASELINE config 1 at the farm's width. 1024 app docs
+#: (the shared-text DataObject: root directory, title cell, body string,
+#: edits counter) x 2 clients, APPS_ROUNDS rounds of one concurrent body
+#: edit a client, then the title, a root key and the counter; the card
+#: farm ingests every body stream after each round
+APPS_DOCS = 1024
+APPS_ROUNDS = 24
+APPS_SEED = 12
+#: the refusal of an app document by the service summarizer
+#: (``tests/test_torch_apps.py`` pins it equal to the JAX package's)
+APPS_REFUSAL = ("doc apps/doc0 has ops for default/root the device does "
+                "not model — keep client summaries")
+#: BASELINE config 3: one 1000 x 1000 SharedMatrix, 8 clients, 5 rounds
+#: of 5 concurrent cell edits a client, a concurrent insert_rows(500, 2)
+#: in round 2 (tests/test_dds_catalog.py's 1k x 1k case)
+MATRIX_SHAPE = (1000, 1000)
+MATRIX_CLIENTS = 8
+MATRIX_ROUNDS = 5
+MATRIX_EDITS = 5
+
+
+def _apps_docs(device: str) -> dict:
+    """Part 1 of the apps phase (BASELINE config 1): returns its row."""
+    from fluidframework_tpu_torch import framework
+    from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.runtime.summarizer import SummaryManager
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+        channel_stream,
+    )
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+    from fluidframework_tpu_torch.service.service_summarizer import (
+        ServiceSummarizer,
+    )
+    from fluidframework_tpu_torch.testing.apps import (
+        app_factory,
+        app_view,
+        edit_app_docs,
+        feed_bodies,
+        open_app_docs,
+    )
+
+    docs = [f"doc{d}" for d in range(APPS_DOCS)]
+    server = LocalServer()
+    loader = Loader(LocalDocumentServiceFactory(server))
+    factory = app_factory(framework)
+    t0 = time.perf_counter()
+    apps = open_app_docs(loader, factory, "apps", docs)
+    open_seconds = time.perf_counter() - t0
+
+    card = GpuDocumentApplier(device=device, async_dispatch=True,
+                              **SERVICE_GEO)
+    # the CPU reference ingests the same calls in the same order: the
+    # farms intern annotate values in ingest order, so only a farm fed
+    # the same way holds the same prop_val ids
+    cpu = GpuDocumentApplier(device="cpu", **SERVICE_GEO)
+    cpu.set_replay_source(lambda t, d: [])
+    fed = []
+    seconds = {"card_feed": 0.0, "cpu_feed": 0.0}
+
+    def feed_both():
+        t = time.perf_counter()
+        fed.append(feed_bodies(server, card, "apps", docs, channel_stream))
+        t1 = time.perf_counter()
+        feed_bodies(server, cpu, "apps", docs, channel_stream)
+        seconds["card_feed"] += t1 - t
+        seconds["cpu_feed"] += time.perf_counter() - t1
+
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ops = edit_app_docs(server, apps, APPS_ROUNDS, APPS_SEED,
+                            after_round=feed_both)
+        t = time.perf_counter()
+        card.finalize()  # re-raises a worker exception: the phase fails
+        seconds["card_feed"] += time.perf_counter() - t
+        # the run's wall time without the CPU reference's share
+        wall = time.perf_counter() - t0 - seconds["cpu_feed"]
+        launches = cuda_apply.LAUNCHES
+        dispatches = card.dispatches
+        card_rows = _state_rows(card, APPS_DOCS, tenant="apps")
+        card_texts = [card.get_text("apps", d) for d in docs]
+        escalations = card.host_escalations
+    finally:
+        card.close()
+    if launches != dispatches or launches == 0:
+        fail(f"apps: {launches} kernel launches for {dispatches} dispatches")
+    if escalations:
+        fail(f"apps: {escalations} host escalations on the card farm")
+
+    cpu_rows = _state_rows(cpu, APPS_DOCS, tenant="apps")
+    bad = [f for f in cpu_rows if not np.array_equal(cpu_rows[f],
+                                                      card_rows[f])]
+    if bad:
+        fail(f"apps: the card farm's state rows differ from the CPU "
+             f"applier's in {bad}")
+    views = {d: [app_view(obj) for _, obj in apps[d]] for d in docs}
+    bad = [d for d, text in zip(docs, card_texts)
+           if cpu.get_text("apps", d) != text
+           or [v["body"] for v in views[d]] != [text, text]
+           or views[d][0] != views[d][1]]
+    if bad:
+        fail(f"apps: {len(bad)} docs' farm text differs from their "
+             f"clients' bodies or the clients differ (first {bad[0]})")
+    if not all(card_texts):
+        fail("apps: a doc's body is empty")
+
+    svc = ServiceSummarizer(server, card, channel_id="body")
+    written = svc.summarize_all("apps", docs)
+    refused = {d: m for _t, d, m in svc.refusals}
+    bad = [d for d in docs
+           if refused.get(d) != APPS_REFUSAL.replace("doc0", d)]
+    if written or bad:
+        fail(f"apps: the service summarizer wrote {written} app docs and "
+             f"refused {len(refused)}; first unexpected {bad[:1]}: "
+             f"{refused.get(bad[0]) if bad else None}")
+
+    t0 = time.perf_counter()
+    for d in docs:
+        container, obj = apps[d][0]
+        SummaryManager(container, max_ops=10**9).summarize_now()
+        joiner = loader.resolve("apps", d)
+        if joiner._base_snapshot is None or \
+                app_view(factory.create_or_load(joiner)) != views[d][0]:
+            fail(f"apps: {d}'s third container did not boot from the "
+                 "client summary or reads other channels")
+        joiner.close()
+    boot_seconds = time.perf_counter() - t0
+    body_ops = sum(fed)
+    return {"docs": APPS_DOCS, "clients_per_doc": 2,
+            "rounds": APPS_ROUNDS, "ops": ops, "body_ops": body_ops,
+            "open_seconds": open_seconds, "seconds": wall,
+            "ops_per_sec": ops / wall,
+            "farm_feed_seconds": seconds["card_feed"],
+            "farm_ops_per_sec": body_ops / seconds["card_feed"],
+            "cpu_farm_feed_seconds": seconds["cpu_feed"],
+            "launches": launches, "dispatches": dispatches,
+            "max_body_chars": max(len(t) for t in card_texts),
+            "refused": len(refused), "boot_seconds": boot_seconds}
+
+
+def _apps_matrix() -> dict:
+    """Part 2 of the apps phase (BASELINE config 3, host code): returns
+    its row."""
+    from fluidframework_tpu_torch.driver import LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.framework import UndoRedoStackManager
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+    from fluidframework_tpu_torch.testing.apps import matrix_cells
+
+    rows, cols = MATRIX_SHAPE
+    server = LocalServer()
+    loader = Loader(LocalDocumentServiceFactory(server))
+    rng = random.Random(33)
+    t0 = time.perf_counter()
+    c0 = loader.resolve("t", "grid")
+    m0 = c0.runtime.create_data_store("default").create_channel(
+        "grid", "shared-matrix")
+    m0.insert_rows(0, rows)
+    m0.insert_cols(0, cols)
+    clients = [c0] + [loader.resolve("t", "grid")
+                      for _ in range(MATRIX_CLIENTS - 1)]
+    mats = [c.runtime.get_data_store("default").get_channel("grid")
+            for c in clients]
+    server._auto_drain = False
+    server.drain()
+    edits = 0
+    for round_ in range(MATRIX_ROUNDS):
+        for i, m in enumerate(mats):
+            for _ in range(MATRIX_EDITS):
+                r, c = rng.randrange(m.row_count), rng.randrange(m.col_count)
+                m.set_cell(r, c, f"c{i}r{round_}")
+                edits += 1
+        if round_ == 2:
+            mats[3].insert_rows(rows // 2, 2)
+        server.drain()
+    server._auto_drain = True
+    server.drain()
+    edit_seconds = time.perf_counter() - t0
+
+    # undo and redo one client's edit through the matrix's undo provider
+    mgr = UndoRedoStackManager()
+    mgr.attach_matrix(mats[1])
+    before = mats[1].get_cell(7, 7)
+    mats[1].set_cell(7, 7, "undo-me")
+    mgr.close_current_operation()
+    undone = mgr.undo() and all(m.get_cell(7, 7) == before for m in mats)
+    redone = mgr.redo() and all(m.get_cell(7, 7) == "undo-me"
+                                for m in mats)
+    if not (undone and redone):
+        fail(f"apps: matrix undo {undone}, redo {redone} across "
+             f"{MATRIX_CLIENTS} clients")
+
+    t1 = time.perf_counter()
+    ref = matrix_cells(mats[0])
+    bad = [i for i, m in enumerate(mats) if matrix_cells(m) != ref]
+    if bad or ref[:2] != [rows + 2, cols]:
+        fail(f"apps: matrix clients {bad} differ from client 0, whose "
+             f"shape is {ref[:2]}")
+    lists = mats[0].to_lists()
+    dense = sorted([r, c, v] for r, row in enumerate(lists)
+                   for c, v in enumerate(row) if v is not None)
+    if dense != ref[2] or len(dense) < 100:
+        fail(f"apps: client 0's to_lists holds {len(dense)} cells, its "
+             f"sparse view {len(ref[2])}")
+    return {"shape": ref[:2], "clients": MATRIX_CLIENTS,
+            "cell_edits": edits, "cells_set": len(dense),
+            "edit_seconds": edit_seconds,
+            "check_seconds": time.perf_counter() - t1,
+            "seconds": time.perf_counter() - t0, "undo_redo": True}
+
+
+def _apps_recorder(device: str) -> dict:
+    """Part 3 of the apps phase: the corpus recorder with its replays on
+    ``device``, under the committed corpus's client-id epochs, so that
+    each ``expect.json`` (fingerprints included) must equal the committed
+    one byte for byte. Returns its row."""
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.replay import record
+
+    corpus = os.path.join(HERE, "tests", "corpus", "corpus")
+    epochs = {}
+    for name in record.SCENARIOS:
+        with open(os.path.join(corpus, name, "messages.json")) as f:
+            epochs[name] = json.load(f)[0]["contents"]["clientId"] \
+                .split("-")[1]
+    with _scratch_dir() as out:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cuda_apply.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            # asserts each replay's text (the farm's on ``device`` and
+            # the client stack's) against the scenario's live text
+            record.record_all(out, device=device, epochs=epochs)
+        except AssertionError as e:
+            fail(f"apps: recorder: {e}")
+        seconds = time.perf_counter() - t0
+        launches = cuda_apply.LAUNCHES
+        differ = []
+        for name in record.SCENARIOS:
+            with open(os.path.join(out, "corpus", name, "expect.json"),
+                      "rb") as f:
+                got = f.read()
+            with open(os.path.join(corpus, name, "expect.json"), "rb") as f:
+                if f.read() != got:
+                    differ.append(name)
+    if differ:
+        fail(f"apps: recorded expect.json of {differ} differs from the "
+             "committed corpus")
+    if launches < len(record.SCENARIOS):
+        fail(f"apps: recorder: {launches} kernel launches for "
+             f"{len(record.SCENARIOS)} replays")
+    return {"scenarios": sorted(record.SCENARIOS), "seconds": seconds,
+            "launches": launches, "device_texts_match": True,
+            "expect_json_match_committed": True}
+
+
+def phase_apps(power: str, device: str = "cuda"):
+    """The client application layer on the card's machine, in three
+    parts. ``docs``: BASELINE config 1 at the farm's width, 1024 app
+    documents (the shared-text DataObject with its root directory, a
+    title cell, a body string and a counter) of 2 clients, whose body
+    streams the async card farm (D=1024, S=256, K=32) ingests after each
+    round; its state rows equal a CPU applier's, every farm text both
+    clients' body; the service summarizer refuses every app doc with
+    ``APPS_REFUSAL``; each doc's client summary boots a third container
+    that reads its title, root key, counter and body.
+    ``matrix``: BASELINE config 3 (host code): a 1000 x 1000 SharedMatrix,
+    8 clients, concurrent cell edits and row inserts, an undo and a redo,
+    all 8 converged to 1002 x 1000. ``recorder``: ``replay.record``
+    records the three corpus scenarios and replays each on the card.
+    Returns B1's launches in the phase."""
+    docs = _apps_docs(device)
+    matrix = _apps_matrix()
+    recorder = _apps_recorder(device)
+    launches = docs["launches"] + recorder["launches"]
+    emit({"phase": "apps", "docs": docs, "matrix": matrix,
+          "recorder": recorder, "launches": launches, "card": power})
     return launches
 
 
@@ -3345,12 +3644,16 @@ OVERLOAD_FLOOD_AFTER_S = 10.0
 #: the core's flags: the flood's budget is ``chaos/noisy.py``'s CAP (400
 #: ops/s, burst 400); ``ingest`` is the example of ``obs/slo.py``'s
 #: docstring, which the steady load alone burns (its bursts' p99 is past
-#: 25 ms), so its state cannot tell the flood; ``flood_ingest``, the
-#: same budget scoped to the flood tenant, has no sample before the flood
-#: and burns only on the flood's own admitted boxcars; the canary probes
-#: every 2 s
+#: 25 ms), so its state cannot tell the flood; ``flood_ingest`` is
+#: scoped to the flood tenant with ``chaos/noisy.py``'s hair-trigger
+#: budget of 0 ms: it has no sample before the flood, and the bucket's
+#: burst admits 20 of the flood's boxcars at once, so it burns as soon as
+#: the flood's own samples fill its window. A 25 ms budget there burned
+#: only when the flood's admitted boxcars met a busy core loop (the
+#: admitted share is what admission keeps fast), which not every run
+#: met; the canary probes every 2 s
 OVERLOAD_SLOS = ("ingest=submit_to_admit:25:5:2",
-                 "flood_ingest=submit_to_admit@flood:25:5:2")
+                 "flood_ingest=submit_to_admit@flood:0:5:2")
 OVERLOAD_CORE_FLAGS = ["--tenant-rate", "flood:400:400",
                        *(f for slo in OVERLOAD_SLOS for f in ("--slo", slo)),
                        "--probe", "--probe-tick", "2"]
@@ -3458,7 +3761,8 @@ class _Flood:
 class _OverloadWatch:
     """Polls the core's SLO status (every 0.25 s) and health verdict
     (every 1 s) on a thread of its own transport: each SLO's states and
-    every health verdict it saw change, with its second since ``t0``."""
+    every health verdict it saw change, with its second since ``t0``,
+    and each SLO's largest windowed count and p99 it read."""
 
     def __init__(self, port: int, t0: float):
         from fluidframework_tpu_torch.driver.network import _Transport
@@ -3466,6 +3770,7 @@ class _OverloadWatch:
         self.rpc = _Transport("127.0.0.1", port, timeout=60.0)
         self.t0 = t0
         self.slo: dict = {}
+        self.peak: dict = {}
         self.health: list = []
         self.error: list = []
         self.stop = threading.Event()
@@ -3479,6 +3784,10 @@ class _OverloadWatch:
                 t = time.time() - self.t0
                 for row in self.rpc.request(
                         {"t": "admin_slo_status"})["slos"]:
+                    peak = self.peak.setdefault(
+                        row["slo"], {"count": 0, "p99_ms": 0.0})
+                    peak["count"] = max(peak["count"], row["count"])
+                    peak["p99_ms"] = max(peak["p99_ms"], row["p99_ms"])
                     seen = self.slo.setdefault(row["slo"], [])
                     if not seen or seen[-1]["state"] != row["state"]:
                         seen.append({"t": round(t, 3), "state": row["state"],
@@ -3676,6 +3985,7 @@ def phase_overload(power: str, device: str = "cuda"):
             row["health_after_seconds"] = time.time() - last_ack
             watch.join()
             row["slo_transitions"] = watch.slo
+            row["slo_peaks"] = watch.peak
             row["health_verdicts"] = watch.health
             # the flood tenant's SLO: ok when the flood starts (it has
             # no sample before), then violated before the flood drained
@@ -3687,7 +3997,8 @@ def phase_overload(power: str, device: str = "cuda"):
             if at_start != ["ok"] or "violated" not in during:
                 fail(f"overload: the flood tenant's SLO read {at_start} at "
                      f"the flood's start and {during} until its drain (want "
-                     f"ok, then violated): {watch.slo}")
+                     f"ok, then violated): {watch.slo}, peaks "
+                     f"{watch.peak}")
             scrape = parse_prometheus(rpc.request(
                 {"t": "admin_metrics_scrape"})["scrape"])
             shed = scrape.get("fluid_net_admission_shed", {})
@@ -3901,6 +4212,7 @@ def main() -> None:
         held.card.close()  # re-raises a worker exception: the run fails
     by_phase["soak"] = timed(phase_soak, power)
     by_phase["replay"] = timed(phase_replay, power)
+    by_phase["apps"] = timed(phase_apps, power)
     by_phase["network"] = timed(phase_network, power)
     by_phase["storage"] = timed(phase_storage, power)
     timed(phase_sharded, power)

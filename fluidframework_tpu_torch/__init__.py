@@ -27,6 +27,11 @@ farm. The network tier serves it all over sockets:
 durable log and consuming an applier stage's backchannel), relay
 ``service.gateway`` processes (native by default, ``csrc/gateway.cpp``),
 the network driver (``driver.network``) and the socket load
-(``service.load_async``). Entry points run on ``cuda`` unless the caller
+(``service.load_async``). On top of the client stack sits the client
+application layer: the JAX package's whole DDS catalog (``dds``), the
+``framework`` (``DataObject``, undo-redo, interceptions, request
+routing), the agent scheduler and intel runner (``runtime``), the URL
+resolver (``loader.url_resolver``) and the corpus recorder
+(``replay.record``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """

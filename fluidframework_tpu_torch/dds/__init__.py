@@ -1,12 +1,12 @@
 """DDS layer of the port: the distributed data structures a summarised
 document holds (JAX counterpart: ``fluidframework_tpu/dds``).
 
-The port carries SharedString (with its interval collections) and
-SharedMap, the channels of the documents the replica farm summarises and
-the replay corpus records. Importing this package registers both channel
-types. The other DDSes of the JAX package (cell, counter, directory,
-consensus collections, ink, matrix, sequences) are not ported yet
-(ROADMAP A10).
+The port carries the JAX package's whole catalog: SharedString (with its
+interval collections), SharedMap, SharedCell and SharedCounter,
+SharedDirectory, the consensus register collection and queue, Ink and
+SharedSummaryBlock, SharedMatrix, and the number and object sequences.
+Importing this package registers every channel type, so
+``create_channel`` and ``load_channel`` know each of them.
 
 Ref: packages/dds (SURVEY §2.2) — every DDS is a deterministic state
 machine over (snapshot, sequenced op stream) implementing the SharedObject
@@ -18,12 +18,28 @@ from .shared_object import SharedObject
 from .registry import create_channel, load_channel, register_channel_type
 from .string import SharedString
 from .map import SharedMap
+from .cell import SharedCell, SharedCounter
+from .directory import SharedDirectory
+from .consensus import ConsensusQueue, ConsensusRegisterCollection
+from .ink import Ink, SharedSummaryBlock
+from .matrix import SharedMatrix
+from .sequence import SharedNumberSequence, SharedObjectSequence
 from .intervals import IntervalCollection, SequenceInterval
 
 __all__ = [
     "SharedObject",
     "SharedString",
     "SharedMap",
+    "SharedCell",
+    "SharedCounter",
+    "SharedDirectory",
+    "ConsensusQueue",
+    "ConsensusRegisterCollection",
+    "Ink",
+    "SharedSummaryBlock",
+    "SharedMatrix",
+    "SharedNumberSequence",
+    "SharedObjectSequence",
     "IntervalCollection",
     "SequenceInterval",
     "create_channel",

@@ -116,6 +116,25 @@ OVERLOAD_AND_HEALTH = ("obs/doctor_rules.py", "obs/slo.py", "obs/health.py",
                        "service/scriptorium.py")
 
 
+#: the client application layer: the rest of the DDS catalog, the
+#: framework, the agent scheduler and intel runner, the URL resolver, the
+#: corpus recorder, and the seeded app documents of the smoke and tests
+CLIENT_APPLICATION_LAYER = (
+    "dds/cell.py", "dds/consensus.py", "dds/directory.py", "dds/ink.py",
+    "dds/sequence.py", "dds/matrix.py", "framework/__init__.py",
+    "framework/data_object.py", "framework/interceptions.py",
+    "framework/undo_redo.py", "framework/last_edited.py",
+    "framework/request_handler.py", "framework/synthesize.py",
+    "runtime/agent_scheduler.py", "runtime/intel_runner.py",
+    "loader/url_resolver.py", "replay/record.py", "testing/apps.py")
+
+
+def test_sources_cover_the_client_application_layer():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(CLIENT_APPLICATION_LAYER)
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
 def test_sources_cover_the_overload_and_health_plane():
     assert {str(p.relative_to(PORT)) for p in SOURCES
             if p.is_relative_to(PORT)} >= set(OVERLOAD_AND_HEALTH)

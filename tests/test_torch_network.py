@@ -3,7 +3,8 @@
 
 Twins of ``tests/test_network.py``'s flows, run against the port's
 ``NetworkFrontEnd(LocalServer()).start_background()`` with the port's
-client stack, one test with the front end in a separate process; then the
+client stack, two tests with the front end in a separate process (one of
+them the DDS catalog over the wire); then the
 wire between the packages: a JAX client against the port's front end and
 a port client against the JAX front end converge to the same texts, and
 the same scripted edits into a JAX and a port front end leave equal
@@ -124,20 +125,21 @@ def test_signals_relay_unsequenced(loader):
 
 
 def test_map_over_network(loader):
-    """``test_map_and_counter_over_network`` without the counter: the
-    port carries SharedString and SharedMap (the other DDSes are ROADMAP
-    A10)."""
+    """The twin of ``test_map_and_counter_over_network``: a map and a
+    counter converge across two network clients."""
     c1 = loader.resolve("t", "doc")
     c2 = loader.resolve("t", "doc")
-    m1 = c1.runtime.create_data_store("default").create_channel(
-        "kv", "shared-map")
+    ds1 = c1.runtime.create_data_store("default")
+    m1 = ds1.create_channel("kv", "shared-map")
+    k1 = ds1.create_channel("n", "shared-counter")
     m1.set("key", {"nested": [1, 2]})
-    m1.set("n", 5)
+    k1.increment(5)
     assert wait_for(lambda: c2.runtime.get_data_store("default")
                     .get_channel("kv").get("key") == {"nested": [1, 2]})
-    # "n" is a later op: it may reach c2 in a later broadcast frame
-    assert wait_for(lambda: c2.runtime.get_data_store("default")
-                    .get_channel("kv").get("n") == 5)
+    # the counter's ops are later: they may reach c2 in a later frame
+    assert wait_for(lambda: "n" in c2.runtime.get_data_store("default")
+                    .channels and c2.runtime.get_data_store("default")
+                    .get_channel("n").value == 5)
 
 
 def test_oversized_message_nacked_not_sequenced(front_end, loader):
@@ -205,6 +207,60 @@ def test_cross_process_server():
         s2.insert_text(0, ">> ")
         assert wait_for(lambda: s1.get_text() == s2.get_text()
                         == ">> cross process!")
+
+
+def test_full_dds_catalog_over_the_wire():
+    """The twin of the JAX test of the same name: matrix, directory,
+    counter and consensus queue converge across two network clients
+    against the port's front end in a process of its own."""
+    with front_end_process() as port:
+        loader = Loader(NetworkDocumentServiceFactory("127.0.0.1", port))
+        c1 = loader.resolve("t", "catalog")
+        c2 = loader.resolve("t", "catalog")
+        ds1 = c1.runtime.create_data_store("default")
+
+        matrix = ds1.create_channel("grid", "shared-matrix")
+        matrix.insert_rows(0, 2)
+        matrix.insert_cols(0, 2)
+        matrix.set_cell(0, 0, "a")
+        matrix.set_cell(1, 1, "d")
+
+        directory = ds1.create_channel("dir", "shared-directory")
+        directory.create_subdirectory("settings").set("theme", "dark")
+
+        counter = ds1.create_channel("clicks", "shared-counter")
+        counter.increment(5)
+
+        queue = ds1.create_channel("work", "consensus-queue")
+        queue.add({"job": 1})
+
+        def synced():
+            ds2 = c2.runtime.data_stores.get("default")
+            return ds2 and all(
+                ch in ds2.channels
+                for ch in ("grid", "dir", "clicks", "work"))
+        assert wait_for(synced)
+        ds2 = c2.runtime.get_data_store("default")
+        assert wait_for(lambda: ds2.get_channel("grid")
+                        .get_cell(1, 1) == "d")
+        assert ds2.get_channel("grid").get_cell(0, 0) == "a"
+        assert wait_for(lambda: ds2.get_channel("dir")
+                        .get_subdirectory("settings") is not None)
+        assert ds2.get_channel("dir").get_subdirectory("settings") \
+            .get("theme") == "dark"
+        assert wait_for(lambda: ds2.get_channel("clicks").value == 5)
+        ds2.get_channel("clicks").increment(-2)
+        assert wait_for(lambda: ds1.get_channel("clicks").value == 3)
+
+        # consensus queue: exactly-once across the wire
+        q2 = ds2.get_channel("work")
+        assert wait_for(lambda: len(q2) == 1)
+        item = q2.acquire()
+        assert item is not None
+        q2.complete(item)
+        assert wait_for(lambda: len(ds1.get_channel("work")) == 0)
+        assert ds1.get_channel("grid").to_lists() == \
+            ds2.get_channel("grid").to_lists() == [["a", None], [None, "d"]]
 
 
 def test_json_and_binary_clients_interoperate(front_end):

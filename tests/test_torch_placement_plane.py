@@ -63,6 +63,19 @@ def _pkg(name: str) -> SimpleNamespace:
 PKGS = {name: _pkg(name) for name in ROOTS}
 
 
+@pytest.fixture(autouse=True)
+def _fresh_placement_counters(monkeypatch):
+    """Test isolation: ``placement_counters()`` keeps the ``Counters`` it
+    made first, registered with the metrics registry of that moment. A
+    test file that ran earlier in this process may have dropped that
+    registry (``reset_registry``), so that ``tier_snapshot`` no longer
+    sees the counts; each case starts without one, and the seams
+    register a fresh one with the current registry."""
+    for P in PKGS.values():
+        monkeypatch.setattr(P.mod("service.placement_plane"),
+                            "_SHARED_COUNTERS", None)
+
+
 def wait_for(pred, timeout: float = 20.0) -> bool:
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+import re
+from importlib import import_module
 from types import SimpleNamespace
 
 import torch
@@ -166,3 +169,121 @@ def token_campaign(root: str, name: str, seed: int, monkeypatch) -> dict:
     return {"docs": out["docs"], "tokens": out["tokens"], "final": final,
             "boot": out["boot"], "counters": out["counters"],
             "crashed": out.get("boot_crashed_cores")}
+
+
+ROOTS = {"jax": "fluidframework_tpu", "torch": "fluidframework_tpu_torch"}
+
+
+def module(pkg: str, name: str):
+    """The module ``name`` (dotted, under the package root) of one
+    package (``jax`` or ``torch``)."""
+    return import_module(f"{ROOTS[pkg]}.{name}")
+
+
+_CLIENT_ID = re.compile(r"client-[0-9A-Za-z]+-\d+")
+
+
+def map_client_ids(obj) -> str:
+    """``obj`` as JSON text (keys sorted) with every client id replaced
+    by its order of first appearance (``C0``, ``C1``, ...), so that two
+    packages' records compare whatever ids their servers handed out."""
+    text = json.dumps(obj, sort_keys=True, default=repr)
+    ids: dict = {}
+    return _CLIENT_ID.sub(
+        lambda m: f"C{ids.setdefault(m.group(0), len(ids))}", text)
+
+
+def _directory_value(sub) -> dict:
+    return {"data": {k: sub.get(k) for k in sorted(sub.keys())},
+            "subdirs": {n: _directory_value(d)
+                        for n, d in sorted(sub.subdirectories())}}
+
+
+def channel_value(ch):
+    """A channel's value as a reader sees it, pending local edits
+    included (``snapshot()`` holds the acked state)."""
+    kind = ch.channel_type
+    if kind == "shared-string":
+        return ch.get_text()
+    if kind in ("shared-number-sequence", "shared-object-sequence"):
+        return ch.get_items()
+    if kind == "shared-map":
+        return {k: ch.get(k) for k in sorted(ch.keys())}
+    if kind == "shared-directory":
+        return _directory_value(ch.root)
+    if kind == "shared-cell":
+        return ["empty"] if ch.empty else ["value", ch.get()]
+    if kind == "shared-counter":
+        return ch.value
+    if kind == "consensus-register-collection":
+        return {k: ch.read_versions(k) for k in sorted(ch.keys())}
+    if kind == "consensus-queue":
+        holders = sorted({e["client"] for e in ch._in_flight.values()})
+        return [ch.peek_values(), {c: ch.holding(c) for c in holders}]
+    if kind == "ink":
+        return ch.get_strokes()
+    if kind == "shared-summary-block":
+        return ch.snapshot()["data"]
+    if kind == "shared-matrix":
+        from fluidframework_tpu_torch.testing.apps import matrix_cells
+
+        return matrix_cells(ch)
+    raise KeyError(kind)
+
+
+def containers_record(containers) -> list:
+    """Every container's client id and data stores: each channel's type,
+    value (``channel_value``) and ``snapshot()``."""
+    out = []
+    for c in containers:
+        stores = {}
+        for ds_id, ds in sorted(c.runtime.data_stores.items()):
+            stores[ds_id] = {
+                name: [ch.channel_type, channel_value(ch), ch.snapshot()]
+                for name, ch in sorted(ds.channels.items())}
+        out.append([c.client_id, stores])
+    return out
+
+
+class Twin:
+    """One package's side of a parity test: a server with a fixed client
+    id epoch and a clock at 0, a local-driver loader that remembers every
+    container it resolves, and ``notes`` for values a scenario observes
+    on the way. ``record()`` is what the two sides must agree on."""
+
+    def __init__(self, pkg: str):
+        self.pkg = pkg
+        st = stack(pkg)
+        self.server = st.server()
+        self.loader = st.Loader(st.LocalDocumentServiceFactory(self.server))
+        self.containers = []
+        self.notes = []
+        resolve = self.loader.resolve
+
+        def remembered(*args, **kw):
+            c = resolve(*args, **kw)
+            self.containers.append(c)
+            return c
+
+        self.loader.resolve = remembered
+
+    def mod(self, name: str):
+        return module(self.pkg, name)
+
+    def note(self, *values) -> None:
+        self.notes.append(list(values))
+
+    def record(self) -> str:
+        return map_client_ids([self.notes,
+                               containers_record(self.containers)])
+
+
+def twin(scenario) -> None:
+    """Run ``scenario(Twin)`` on the JAX package, then on the port, and
+    require equal records."""
+    records = {}
+    for pkg in ("jax", "torch"):
+        t = Twin(pkg)
+        scenario(t)
+        records[pkg] = t.record()
+    assert records["torch"] == records["jax"]
