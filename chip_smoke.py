@@ -86,6 +86,16 @@ ok to violated during the flood, sheds on the flood tenant only, every op of bot
 against a CPU applier fed the whole log and every doc's log through the
 invariant monitor. ``campaigns`` runs ``chaos.noisy``, ``coldstart``,
 ``multihost`` and soak phase B in full at seed 0.
+Then the operator and developer surface: ``host_admin`` runs the
+port's dev host (``python -m fluidframework_tpu_torch.host``) for each
+of the seven apps on its topology, and beside it one core with its
+admin secret, journal and health engine and the applier stage child on
+the card (D=1024, S=256) under one round of the network phase's load,
+read through the port's ``admin`` CLI (``monitor`` while ops are in
+flight and until every doc's applier lag is 0, ``docs``, ``status``,
+tenant CRUD with and without the secret, ``metrics``, ``journal``,
+``slo``, ``health``, ``flight dump``, ``bundle``) and the port's offline
+doctor; the stage's farm is held against a CPU applier.
 Each phase prints one JSON line (the last one, each phase's seconds); any
 failure exits nonzero. Before the last line it prints
 the kernel table (``{"kernels": [...]}``) and the card's name and power
@@ -99,6 +109,7 @@ import contextlib
 import json
 import os
 import random
+import re
 import shutil
 import signal
 import subprocess
@@ -2620,11 +2631,13 @@ def phase_network(power: str, device: str = "cuda"):
 
 
 #: the storage phase, part B: the network phase's width at a pace the core
-#: serves (0.4 Hz a client: 98,304 ops over about 10 s), two workers
+#: serves (0.4 Hz a client: 49,152 ops over about 5 s), two workers
 #: through the gateway and two direct, beside real containers on
-#: STORAGE_CONTAINERS docs through the gateway
+#: STORAGE_CONTAINERS docs through the gateway. Cut in depth to two
+#: rounds (four until the host_admin phase joined the smoke) to hold the
+#: smoke's time
 STORAGE_RUN = dict(workers=4, docs_per_worker=256, clients_per_doc=2,
-                   rounds=4, batch=12, rate=0.4)
+                   rounds=2, batch=12, rate=0.4)
 STORAGE_CONTAINERS = 8
 
 
@@ -4150,6 +4163,369 @@ def phase_campaigns(power: str):
     emit(row)
 
 
+#: the host_admin phase, part A: each of the port's seven apps on a
+#: topology of its dev host (the JAX tests' pairs: todo through gateways,
+#: canvas on the sharded core; shared_text on the split core; the other
+#: four on one core)
+HOST_APPS = (("todo", "gateway"), ("canvas", "sharded"),
+             ("shared_text", "split"), ("clicker", "single"),
+             ("table_doc", "single"), ("sudoku", "single"),
+             ("album", "single"))
+HOST_APP_TIMEOUT_S = 240.0
+#: part B: the network phase's width (1024 docs x 2 clients, boxcars of
+#: 12 at 4 Hz) cut in depth to one round, 24,576 ops, every worker direct
+#: to the core
+HOST_ADMIN_RUN = dict(NETWORK_RUN, rounds=1)
+HOST_ADMIN_SECRET = "host-admin-smoke"
+#: monitor ticks read while the load runs (from its start instant)
+HOST_ADMIN_EARLY_TICKS = 1
+#: monitor ticks after the last ack within which every doc must read
+#: ``applier_lag 0``
+HOST_ADMIN_LAG_TICKS = 120
+_MONITOR_ROW = re.compile(
+    r"^  (\S+): seq (\d+) msn (\d+) clients (\d+) applier_lag (\S+)$")
+
+
+class _AppGroups:
+    """The process groups of part A's dev hosts (each host, its fleet and
+    its app's actors): on leaving the block no new one starts and every
+    live one is killed."""
+
+    def __init__(self):
+        self.groups: list = []
+        self.lock = threading.Lock()
+        self.closed = False
+
+    def spawn(self, argv: list):
+        with self.lock:
+            if self.closed:
+                raise RuntimeError("the phase is over")
+            proc = subprocess.Popen(
+                argv, cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+            self.groups.append(proc)
+            return proc
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        with self.lock:
+            self.closed = True
+            for proc in self.groups:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait(timeout=30)
+
+
+def _host_app(app: str, kind: str, err_path: str,
+              groups: _AppGroups) -> dict:
+    """``python -m fluidframework_tpu_torch.host APP -t KIND``: its seconds
+    and its ``CONVERGED`` line. Fails the phase unless it exits 0 with
+    one; on a timeout its whole process group (the host's fleet and the
+    app's actors) is killed."""
+    t0 = time.perf_counter()
+    proc = groups.spawn(
+        [sys.executable, "-m", "fluidframework_tpu_torch.host", app, "-t",
+         kind])
+    try:
+        out, err = proc.communicate(timeout=HOST_APP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"host_admin: {app} on {kind} ran past {HOST_APP_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    with open(err_path, "a") as f:
+        f.write(err)
+    said = [ln.strip() for ln in out.splitlines()
+            if ln.strip().startswith("CONVERGED")]
+    if proc.returncode != 0 or not said:
+        fail(f"host_admin: {app} on {kind} exited {proc.returncode} "
+             f"without converging ({out[-400:]!r}); stderr in {err_path}")
+    return {"topology": kind, "seconds": seconds, "converged": said[-1]}
+
+
+def _admin_cli(port: int, *argv, secret: bool = True) -> tuple:
+    """The port's ``admin`` CLI in this process: (exit code, its standard
+    output, seconds)."""
+    import io
+
+    from fluidframework_tpu_torch import admin
+
+    args = ["--port", str(port)]
+    if secret:
+        args += ["--admin-secret", HOST_ADMIN_SECRET]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = admin.main(args + list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _monitor_ticks(text: str) -> list:
+    """Each tick of ``admin monitor``'s output as {doc: applier_lag}, the
+    lag an int, or None where the monitor printed "-"."""
+    ticks = []
+    for ln in text.splitlines():
+        if ln.startswith("tick "):
+            ticks.append({})
+        elif ticks and (m := _MONITOR_ROW.match(ln)):
+            lag = m.group(5)
+            ticks[-1][m.group(1)] = None if lag == "-" else int(lag)
+    return ticks
+
+
+class _SecretRpc:
+    """A transport that signs every admin frame with the phase's secret."""
+
+    def __init__(self, transport):
+        self.transport = transport
+
+    def request(self, frame: dict) -> dict:
+        return self.transport.request(dict(frame, secret=HOST_ADMIN_SECRET))
+
+
+def phase_host_admin(power: str, device: str = "cuda"):
+    """The operator and developer surface of the port.
+
+    Part A (on a thread beside part B): the dev host runs each of the
+    seven apps on its topology (``HOST_APPS``); each converges. Part B,
+    the operator's view over the card: one core (``front_end --log-dir L
+    --consume-backchannel S --admin-secret X --journal J --probe
+    --probe-tick 3600``) beside the
+    applier stage child on the card (D=1024, S=256, K=32) under
+    ``HOST_ADMIN_RUN``. ``admin monitor`` shows some doc with
+    ``applier_lag`` > 0 while ops are in flight, then every doc at 0
+    within ``HOST_ADMIN_LAG_TICKS`` ticks of the last ack; ``docs`` lists
+    every doc; ``status`` of sampled docs equals the core's status RPC;
+    ``tenant-add`` and ``tenant-rm`` are refused without the secret and
+    done with it; ``metrics``, ``journal``, ``slo``, ``health`` and
+    ``flight dump`` exit 0; ``bundle`` writes the manifest and the core's
+    files, which the port's doctor triages with no anomaly; the stage's final checkpoint, loaded on the
+    card, escalated nothing and equals a CPU applier fed the core's log.
+    The health engine is armed but its canary's first pass is set past
+    the phase: a canary doc would take a row of the D=1024 farm. B1 runs
+    in the stage child only, so the smoke's own launch count is
+    unchanged."""
+    from fluidframework_tpu_torch.driver.network import _Transport
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        load_applier_checkpoint,
+    )
+    from fluidframework_tpu_torch.service.stage_runner import ApplierStage
+    from fluidframework_tpu_torch.tools import doctor
+
+    run = HOST_ADMIN_RUN
+    docs = [f"hadm{w}d{d}" for w in range(run["workers"])
+            for d in range(run["docs_per_worker"])]
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    err_path = os.path.join(out_dir, "host_admin_stderr.txt")
+    row = {"phase": "host_admin", "docs": len(docs), **run,
+           "b1": "launched in the stage child only (its own process): the "
+                 "smoke's own count is unchanged; its applied records "
+                 "bring every doc to applier_lag 0 and its farm equals a "
+                 "CPU applier's"}
+    procs = []
+    t_phase = time.perf_counter()
+    with _scratch_dir() as tmp, _children(procs), _AppGroups() as groups:
+        log_dir, state_dir = (os.path.join(tmp, "log"),
+                              os.path.join(tmp, "state"))
+        # the stage child sets up torch and the card while part A runs
+        with open(err_path, "a") as err:
+            stage = subprocess.Popen(
+                [sys.executable, "-m",
+                 "fluidframework_tpu_torch.service.stage_runner", "--stage",
+                 "applier", "--log-dir", log_dir, "--state-dir", state_dir,
+                 "--device", device,
+                 "--max-docs", str(SERVICE_GEO["max_docs"]),
+                 "--max-slots", str(SERVICE_GEO["max_slots"])],
+                cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True)
+        procs.append(stage)
+        said = []
+        reader = threading.Thread(
+            target=lambda: said.append(stage.stdout.readline()), daemon=True)
+        reader.start()
+        # part A runs beside part B on a thread of its own (its apps one
+        # after another): the phase takes the longer of the two
+        part_a: dict = {}
+
+        def run_part_a():
+            t0 = time.perf_counter()
+            try:
+                for app, kind in HOST_APPS:
+                    part_a[app] = _host_app(app, kind, err_path, groups)
+            except BaseException as e:  # fail() exits: reported below
+                part_a["failed"] = repr(e)
+                raise
+            finally:
+                part_a["seconds"] = time.perf_counter() - t0
+
+        apps = threading.Thread(target=run_part_a, daemon=True)
+        apps.start()
+        reader.join(CHILD_TIMEOUT_S)
+        if not said or not said[0].startswith("READY"):
+            fail(f"host_admin: the applier stage child did not start on "
+                 f"{device} (got {said}, rc {stage.poll()}); stderr in "
+                 f"{err_path}")
+        core, line = _spawn_ready(
+            ["fluidframework_tpu_torch.service.front_end", "--port", "0",
+             "--log-dir", log_dir, "--consume-backchannel", state_dir,
+             "--admin-secret", HOST_ADMIN_SECRET,
+             "--journal", os.path.join(tmp, "journal.jsonl"),
+             "--probe", "--probe-tick", "3600"],
+            "LISTENING", err_path, "host_admin: the core")
+        procs.append(core)
+        port = int(line.rsplit(":", 1)[1])
+
+        # the load, and the monitor reading the core while it runs
+        early = {}
+
+        def during():
+            time.sleep(NETWORK_START_MARGIN_S)
+            rc, text, seconds = _admin_cli(
+                port, "monitor", "--interval", "0.5", "--count",
+                str(HOST_ADMIN_EARLY_TICKS))
+            early.update(rc=rc, ticks=_monitor_ticks(text), seconds=seconds)
+
+        load, last_ack = _run_load(
+            run, [port] * run["workers"], "hadm",
+            {"core": core.pid, "stage": stage.pid}, procs, err_path,
+            "host_admin", during=during)
+        row["load"] = load
+        ticks = early["ticks"]
+        lagging = [sum(1 for lag in t.values() if lag) for t in ticks]
+        row["monitor_early"] = {
+            "seconds": early["seconds"], "docs": [len(t) for t in ticks],
+            "lagging_docs": lagging,
+            "max_lag": [max([lag or 0 for lag in t.values()] or [0])
+                        for t in ticks]}
+        if early["rc"] != 0 or len(ticks) != HOST_ADMIN_EARLY_TICKS:
+            fail(f"host_admin: admin monitor exited {early['rc']} with "
+                 f"{len(ticks)} ticks during the load")
+        if not any(lagging):
+            fail("host_admin: no doc showed applier_lag > 0 on the "
+                 f"monitor's ticks during the load ({row['monitor_early']})")
+
+        # after the last ack: every doc's applier_lag reaches 0
+        want = [f"bench/{d}" for d in docs]
+        for tick in range(1, HOST_ADMIN_LAG_TICKS + 1):
+            rc, text, _ = _admin_cli(port, "monitor", "--interval", "0.5",
+                                     "--count", "1")
+            (lags,) = _monitor_ticks(text) or [{}]
+            if rc == 0 and all(lags.get(d) == 0 for d in want):
+                break
+            time.sleep(0.5)
+        else:
+            behind = [d for d in want if lags.get(d) != 0]
+            fail(f"host_admin: {len(behind)} docs not at applier_lag 0 "
+                 f"after {HOST_ADMIN_LAG_TICKS} monitor ticks (first "
+                 f"{behind[0]}: {lags.get(behind[0])})")
+        row["ticks_to_lag_zero"] = tick
+        row["lag_zero_seconds"] = time.time() - last_ack
+
+        rpc = _SecretRpc(_Transport("127.0.0.1", port, timeout=60.0))
+        try:
+            _settled_seqs(rpc, docs, "host_admin")
+            seconds = {}
+            rc, text, seconds["docs"] = _admin_cli(port, "docs")
+            listed = set(text.split())
+            if rc != 0 or listed != set(want):
+                fail(f"host_admin: admin docs listed {len(listed)} docs, "
+                     f"{len(listed & set(want))} of the load's {len(want)}")
+            sample = docs[::len(docs) // 8]
+            seconds["status"] = 0.0
+            for doc in sample:
+                rc, text, took = _admin_cli(port, "status", "bench", doc)
+                seconds["status"] += took
+                st = rpc.request({"t": "admin_status", "tenant": "bench",
+                                  "doc": doc})["status"]
+                if rc != 0 or json.loads(text) != st:
+                    fail(f"host_admin: admin status bench {doc} disagrees "
+                         f"with the core's status RPC ({text[:200]!r})")
+            row["status_sampled"] = len(sample)
+
+            # tenant CRUD: refused without the secret, done with it
+            for argv, done in ((("tenant-add", "hadm-t", "hadm-s"),
+                                "registered hadm-t"),
+                               (("tenant-rm", "hadm-t"), "removed hadm-t")):
+                try:
+                    _admin_cli(port, *argv, secret=False)
+                except RuntimeError:
+                    pass
+                else:
+                    fail(f"host_admin: admin {argv[0]} without the secret "
+                         "was not refused")
+                rc, text, seconds[argv[0]] = _admin_cli(port, *argv)
+                if rc != 0 or done not in text:
+                    fail(f"host_admin: admin {argv[0]} exited {rc} "
+                         f"({text[:200]!r})")
+            for name, argv in (("metrics", ("metrics",)),
+                               ("journal", ("journal",)),
+                               ("slo", ("slo",)), ("health", ("health",)),
+                               ("flight_dump", ("flight", "dump", "--reason",
+                                                "host_admin"))):
+                rc, text, seconds[name] = _admin_cli(port, *argv)
+                if rc != 0:
+                    fail(f"host_admin: admin {' '.join(argv)} exited {rc} "
+                         f"({text[-300:]!r})")
+
+            bundle = os.path.join(tmp, "bundle")
+            rc, text, seconds["bundle"] = _admin_cli(port, "bundle",
+                                                     "--out", bundle)
+            files = sorted(os.path.relpath(os.path.join(d, f), bundle)
+                           for d, _, fs in os.walk(bundle) for f in fs)
+            if rc != 0 or "manifest.json" not in files or not any(
+                    f.startswith("cores/local/") for f in files):
+                fail(f"host_admin: admin bundle exited {rc} with files "
+                     f"{files}")
+            t0 = time.perf_counter()
+            report = doctor.diagnose(bundle)
+            seconds["doctor"] = time.perf_counter() - t0
+            # the core arms its journal and sets no SLO: the phase
+            # explains no anomaly
+            if report["anomalies"] or report["slo_burn"]:
+                fail(f"host_admin: the doctor found {report['anomalies']} "
+                     f"{report['slo_burn']} in the bundle")
+            row["admin_seconds"] = seconds
+            row["bundle_files"] = files
+            row["doctor"] = {"anomalies": report["anomalies"],
+                             "hop_pairs": report["hop_pairs"][:3]}
+        finally:
+            rpc.transport.close()
+
+        # the stage's farm against a CPU applier fed the core's log
+        stage.send_signal(signal.SIGTERM)
+        stage.wait(timeout=60)
+        t0 = time.perf_counter()
+        farm = load_applier_checkpoint(os.path.join(state_dir, "applier"),
+                                       device=device)
+        if farm.host_escalations or farm._host_docs:
+            fail("host_admin: the stage escalated docs")
+        ref = ApplierStage(log_dir, os.path.join(tmp, "cpu"),
+                           max_docs=SERVICE_GEO["max_docs"],
+                           max_slots=SERVICE_GEO["max_slots"], device="cpu")
+        while ref.run_once():
+            pass
+        bad = [d for d in docs if ref.applier.get_text("bench", d)
+               != farm.get_text("bench", d)]
+        ref.shared.close()
+        if bad:
+            fail(f"host_admin: {len(bad)} docs of the stage's farm differ "
+                 f"from the CPU applier (first {bad[0]})")
+        row["farm_check_seconds"] = time.perf_counter() - t0
+        row["texts_match_cpu"] = True
+        row["part_b_seconds"] = time.perf_counter() - t_phase
+        apps.join(len(HOST_APPS) * HOST_APP_TIMEOUT_S)
+        if apps.is_alive() or "failed" in part_a:
+            fail(f"host_admin: part A failed ({part_a.get('failed')}); "
+                 f"stderr in {err_path}")
+        row["part_a_seconds"] = part_a.pop("seconds")
+        row["part_a"] = part_a
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    row["card"] = power
+    emit(row)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -4213,6 +4589,7 @@ def main() -> None:
     by_phase["soak"] = timed(phase_soak, power)
     by_phase["replay"] = timed(phase_replay, power)
     by_phase["apps"] = timed(phase_apps, power)
+    timed(phase_host_admin, power)
     by_phase["network"] = timed(phase_network, power)
     by_phase["storage"] = timed(phase_storage, power)
     timed(phase_sharded, power)

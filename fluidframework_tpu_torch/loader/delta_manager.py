@@ -1,7 +1,11 @@
 """DeltaManager: the client op pump.
 
 JAX counterpart: ``fluidframework_tpu/loader/delta_manager.py``; the port's copy,
-imports rebased to this package.
+imports rebased to this package. One repair (ROADMAP C2): work a caller's
+thread does on the stream (submits, the connect-time catch-up, stepping
+the inbound queue) holds the lock the connection's reader thread
+dispatches under (``dispatch_guard``), and the runtime holds it around
+record-then-send and the reconnect replay.
 
 Ref: loader/container-loader/src/deltaManager.ts — inbound sequenced ops
 with gap detection + reorder buffer and backfill fetch (:1188, :432, :647),
@@ -13,6 +17,8 @@ build handles at the batch boundary instead.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, Optional
 
 from ..driver.definitions import DocumentService
@@ -44,8 +50,14 @@ class DeltaManager:
         self.client_id: Optional[str] = None
         self.last_processed_seq = 0
         self.duplicates_received = 0
+        # the handshake's seq: a live op at or below it also came in the
+        # connect-time catch-up (an expected overlap, not a duplicate)
+        self._backfill_to = 0
         self.minimum_sequence_number = 0
         self._client_seq = 0
+        # the dispatch guard's lock for a connection that has none of
+        # its own (the in-process driver)
+        self._submit_lock = threading.RLock()
         self._reorder: dict[int, SequencedDocumentMessage] = {}
         self.process_handler: Optional[Callable[[SequencedDocumentMessage], None]] = None
         self.nack_handler: Optional[Callable[[Nack], None]] = None
@@ -120,11 +132,13 @@ class DeltaManager:
                 self.counters.inc(
                     "boot.backfill.bounded" if self.last_processed_seq > 0
                     else "boot.backfill.full")
-            conn.on_op = self._enqueue  # assigning flushes buffered events
-            # repair any gap between our head and the pre-subscription
-            # history; everything from the handshake on arrives live
-            # (incl. our join)
-            self._fetch_missing(upto=conn.initial_sequence_number)
+            with self.dispatch_guard():
+                self._backfill_to = conn.initial_sequence_number
+                conn.on_op = self._enqueue  # flushes buffered events
+                # repair any gap between our head and the pre-
+                # subscription history; everything from the handshake on
+                # arrives live (incl. our join)
+                self._fetch_missing(upto=conn.initial_sequence_number)
         except BaseException:
             # a half-opened connection must not wedge future connects: a
             # still-pending _pending_connection makes connect() an early-
@@ -206,6 +220,30 @@ class DeltaManager:
         metadata: Optional[dict] = None,
     ) -> int:
         """Send one message on the live connection; returns clientSeq."""
+        with self.dispatch_guard():
+            return self._submit_locked(type, contents, metadata)
+
+    @contextlib.contextmanager
+    def dispatch_guard(self):
+        """Hold the lock under which the connection dispatches inbound
+        events: the socket driver's reader thread holds its ``lock``
+        while it delivers ops, so the inbound drain, the activation
+        replay and the refSeq heartbeat run under it (ROADMAP C2). A
+        submit from another thread that holds it too cannot land between
+        two replayed ops, and clientSeqs reach the connection in the
+        order they were given; a catch-up on another thread cannot drain
+        beside the reader thread's. Re-entrant; re-taken if the
+        connection changed while waiting."""
+        while True:
+            conn = self._pending_connection or self.connection
+            lock = getattr(conn, "lock", None) or self._submit_lock
+            with lock:
+                if (self._pending_connection or self.connection) is conn:
+                    yield
+                    return
+
+    def _submit_locked(self, type: MessageType, contents: Any,
+                       metadata: Optional[dict]) -> int:
         if self.connection is None:
             raise RuntimeError("cannot submit while disconnected")
         mode = getattr(self.connection, "mode", "write")
@@ -238,6 +276,11 @@ class DeltaManager:
         outbound DeltaQueue batch flush, deltaManager.ts:583 + the
         batchBegin/batchEnd metadata convention). The whole batch rides
         the raw log as one boxcar, so it is sequenced contiguously."""
+        with self.dispatch_guard():
+            return self._submit_batch_locked(type, contents_list)
+
+    def _submit_batch_locked(self, type: MessageType,
+                             contents_list: list) -> list[int]:
         if self.connection is None:
             raise RuntimeError("cannot submit while disconnected")
         msgs = []
@@ -276,10 +319,11 @@ class DeltaManager:
 
     def resume_inbound(self) -> None:
         """Deliver everything buffered, in order, then go live again."""
-        self._paused = False
-        pending, self._pause_buffer = self._pause_buffer, []
-        for msg in pending:
-            self._enqueue(msg)
+        with self.dispatch_guard():
+            self._paused = False
+            pending, self._pause_buffer = self._pause_buffer, []
+            for msg in pending:
+                self._enqueue(msg)
 
     def step_inbound(self, count: int = 1) -> int:
         """Deliver up to ``count`` buffered messages while staying paused
@@ -290,6 +334,10 @@ class DeltaManager:
         out-of-order arrival would trigger gap repair that pulls ops
         still sitting in the pause buffer from delta storage — delivering
         more than ``count`` and leaving silent duplicates behind."""
+        with self.dispatch_guard():
+            return self._step_inbound(count)
+
+    def _step_inbound(self, count: int) -> int:
         delivered = 0
         while delivered < count and self._pause_buffer:
             msg = min(self._pause_buffer, key=lambda m: m.sequence_number)
@@ -312,8 +360,11 @@ class DeltaManager:
             # dedupe is correctness (reconnect backfill overlap), but a
             # STEADY duplicate stream is a delivery bug upstream (e.g.
             # the gateway double-upstream race) that dedupe would mask —
-            # count it so tests and telemetry can see it
-            self.duplicates_received += 1
+            # count it so tests and telemetry can see it. The reader
+            # thread waits out the catch-up (dispatch_guard), so a live
+            # op inside the handshake's range arrives after it: overlap
+            if msg.sequence_number > self._backfill_to:
+                self.duplicates_received += 1
             return
         self._reorder[msg.sequence_number] = msg
         self._drain_reorder()
@@ -373,8 +424,9 @@ class DeltaManager:
         delta storage WITHOUT a live connection — the replay-driver pump
         (ref: replay-driver ReplayController stepping the inbound queue).
         Returns the new last_processed_seq."""
-        self._fetch_missing(upto=seq)
-        return self.last_processed_seq
+        with self.dispatch_guard():
+            self._fetch_missing(upto=seq)
+            return self.last_processed_seq
 
     def _fetch_missing(self, upto: int) -> None:
         """Backfill (last_processed, upto] from delta storage.

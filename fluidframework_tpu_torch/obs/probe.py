@@ -94,6 +94,13 @@ class CanaryProber:
         self.max_route_peers = max(0, int(max_route_peers))
         self._doors: dict = {}
         self._peer_rows: dict = {}
+        # whole passes: how many began, and the last that ended (its
+        # number and the doors it armed, with its verdict on each):
+        # ``Fleet.wait_healthy`` waits for a pass that began after the
+        # verdict turned ok
+        self._started = 0
+        self._pass_doors: dict = {}
+        self._last_pass: dict = {}
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -109,6 +116,7 @@ class CanaryProber:
                        "last_ms": 0.0, "last_error": None})
             d["probes"] += 1
             d["last_ms"] = round(ms, 3)
+            self._pass_doors[door] = ok and self._pass_doors.get(door, True)
             was_ok = d["ok"]
             if ok:
                 d["ok"] = True
@@ -130,7 +138,9 @@ class CanaryProber:
             return {"doors": {k: dict(v)
                               for k, v in sorted(self._doors.items())},
                     "peers": {k: dict(v)
-                              for k, v in self._peer_rows.items()}}
+                              for k, v in self._peer_rows.items()},
+                    "passes": {"started": self._started,
+                               "last": dict(self._last_pass)}}
 
     def peer_rows(self) -> dict:
         """owner → manifest-shaped row (``error`` set when the route
@@ -277,9 +287,17 @@ class CanaryProber:
                 self._peer_rows[owner] = prow
 
     def probe_once(self) -> dict:
-        """One full pass over every armed door; returns status()."""
+        """One full pass over every armed door; returns status(). The
+        pass counters move only here: ``started`` before the first
+        door, the last pass's record after the last door."""
+        with self._lock:
+            self._started += 1
+            n = self._started
+            self._pass_doors = {}
         self._probe_session_doors()
         self._probe_route()
+        with self._lock:
+            self._last_pass = {"n": n, "doors": dict(self._pass_doors)}
         return self.status()
 
     # ------------------------------------------------------------ thread

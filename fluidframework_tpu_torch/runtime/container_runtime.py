@@ -1,7 +1,8 @@
 """ContainerRuntime: op multiplexer + pending-state replay.
 
 JAX counterpart: ``fluidframework_tpu/runtime/container_runtime.py``; the port's copy,
-imports rebased to this package.
+imports rebased to this package. One repair (ROADMAP C2): submissions and
+the activation replay hold the delta manager's ``dispatch_guard``.
 
 Ref: runtime/container-runtime/src/containerRuntime.ts — process (:1094)
 routes envelopes to data stores; submit batches local ops; the
@@ -134,6 +135,14 @@ class ContainerRuntime:
         DeltaManager + replays via PendingStateManager; state here lives in
         one place). Recording MUST precede the send: with a synchronous
         in-proc service the ack can arrive inside the submit call."""
+        # the delta manager's dispatch guard (ROADMAP C2), held here and
+        # around the activation replay: an op the app submits on its
+        # thread while the reader thread replays the pending ops is
+        # either replayed with them or sent after them, never between
+        with self.container.delta_manager.dispatch_guard():
+            self._submit_locked(envelope)
+
+    def _submit_locked(self, envelope: dict) -> None:
         if getattr(self.container, "readonly", False):
             # the DDS already applied the edit optimistically; a replica
             # holding a mutation that can never be submitted is corrupt,
@@ -165,13 +174,14 @@ class ContainerRuntime:
         boxcar on the raw log, sequenced without interleaving."""
         if self._order_depth:
             return  # orderSequentially flushes at its own close
-        batch, self._batch = self._batch, []
-        if not batch:
-            return
-        seqs = self.container.delta_manager.submit_batch(
-            MessageType.OPERATION, [e.envelope for e in batch])
-        for entry, seq in zip(batch, seqs):
-            entry.client_seq = seq
+        with self.container.delta_manager.dispatch_guard():
+            batch, self._batch = self._batch, []
+            if not batch:
+                return
+            seqs = self.container.delta_manager.submit_batch(
+                MessageType.OPERATION, [e.envelope for e in batch])
+            for entry, seq in zip(batch, seqs):
+                entry.client_seq = seq
 
     @contextlib.contextmanager
     def order_sequentially(self):
@@ -198,6 +208,11 @@ class ContainerRuntime:
     # ----------------------------------------------------------- reconnect
 
     def set_connection_state(self, connected: bool, client_id: Optional[str]) -> None:
+        with self.container.delta_manager.dispatch_guard():
+            self._set_connection_state_locked(connected, client_id)
+
+    def _set_connection_state_locked(self, connected: bool,
+                                     client_id: Optional[str]) -> None:
         self.connected = connected
         if connected:
             old_client_id, self.client_id = self.client_id, client_id

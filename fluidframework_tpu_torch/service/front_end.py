@@ -10,7 +10,9 @@ poll, lazy boot admission and the rebalancer), the overload and health
 plane (``enable_admission``, ``attach_slo``, ``enable_health``, fleet
 ``admin_health`` and the ``--tenant-rate``/``--slo``/``--no-shed``/
 ``--probe`` flags), the ``snapshot.chunk`` chaos seam,
-``start_background``/``serve_forever`` and ``main()``.
+``start_background``/``serve_forever`` and ``main()``. One repair
+(ROADMAP C12): over a durable log, the frames an ingress batch writes
+(acks included) leave after the batch's log flush, not before it.
 
 Ref: lambdas/src/alfred/index.ts:112-405 — the reference's front end is a
 socket.io server doing the connect_document handshake (:159,:285),
@@ -256,7 +258,7 @@ class _ClientSession:
                     self._dropping = True
                     self._loop.call_soon(self._drop_slow_consumer)
                 return
-            self.writer.write(_encode_frame({"t": t, **payload}))
+            self.front._write(self.writer, _encode_frame({"t": t, **payload}))
         except RuntimeError:
             pass  # transport torn down mid-shutdown; peer is gone anyway
 
@@ -365,7 +367,7 @@ class _ClientSession:
                     self._dropping = True
                     self._loop.call_soon(self._drop_slow_consumer)
                 return
-            self.writer.write(raw)
+            self.front._write(self.writer, raw)
         except RuntimeError:
             pass
 
@@ -1855,6 +1857,10 @@ class NetworkFrontEnd:
         self._bg_tasks: list = []  # strong refs; the loop's are weak
         self._log_flush = (shard_host is not None
                            or hasattr(self.server.log, "flush"))
+        # outbound frames written while an ingress batch is handled wait
+        # here for the batch's log flush (ROADMAP C12): an ack never
+        # reaches a client before the op it acks is in the durable log
+        self._held: Optional[list] = None
         # (tenant, doc) → applied seq reported by an applier stage
         self.applier_status: dict = {}
         # overload-control loop: the admission gate stays None (one
@@ -2191,6 +2197,23 @@ class NetworkFrontEnd:
             if hasattr(server.log, "flush"):
                 server.log.flush()
 
+    def _write(self, writer, data: bytes) -> None:
+        """Write a frame, or hold it for the ingress batch's flush."""
+        if self._held is not None:
+            self._held.append((writer, data))
+        else:
+            writer.write(data)
+
+    def _release_held(self) -> None:
+        held, self._held = self._held, None
+        for writer, data in held:
+            if writer.is_closing():
+                continue
+            try:
+                writer.write(data)
+            except RuntimeError:
+                pass  # transport torn down mid-shutdown; peer is gone
+
     def _flush_dirty(self) -> None:
         """Flush only the logs the current ingress batch dirtied.
 
@@ -2270,41 +2293,51 @@ class NetworkFrontEnd:
                 # wave — the old per-frame flush+drain was the dominant
                 # fixed cost of the socket tier. The cap keeps one hot
                 # connection from starving its peers on the loop.
-                n = 0
-                deferred: list = []
-                while body is not None:
-                    n += 1
-                    recorder.frame(conn_id, "in", body)
-                    if binwire.is_binary(body):
-                        session.handle_binary(body)
-                    else:
-                        frame = json.loads(body.decode())
-                        if frame.get("t") in _BULK_FRAMES:
-                            # lane priority: bulk backfill yields to the
-                            # interactive ops of the same wave — a
-                            # catch-up client's multi-MB range read must
-                            # not sit between a submit and its ack
-                            deferred.append(frame)
+                # this batch's writes (acks, fan-out, replies) wait for
+                # its log flush (C12); a batch started while another is
+                # suspended inside its reads shares the first one's hold
+                outer = self._log_flush and self._held is None
+                if outer:
+                    self._held = []
+                try:
+                    n = 0
+                    deferred: list = []
+                    while body is not None:
+                        n += 1
+                        recorder.frame(conn_id, "in", body)
+                        if binwire.is_binary(body):
+                            session.handle_binary(body)
                         else:
-                            session.handle(frame)
-                    body = None
-                    if n < 64 and _frame_buffered(reader):
-                        # completes synchronously — the bytes are
-                        # already in the stream buffer
-                        body = await _read_body(reader)
-                for frame in deferred:
-                    session.handle(frame)
-                if deferred:
-                    counters.inc("net.ingress.deprioritized",
-                                 len(deferred))
-                counters.inc("net.ingress.frames", n)
-                counters.inc("net.ingress.batches")
-                if n > 1:
-                    counters.inc("net.ingress.coalesced", n - 1)
-                if self._log_flush:
-                    # make this batch's appends visible to the stage
-                    # processes tailing the shared log
-                    self._flush_dirty()
+                            frame = json.loads(body.decode())
+                            if frame.get("t") in _BULK_FRAMES:
+                                # lane priority: bulk backfill yields to the
+                                # interactive ops of the same wave — a
+                                # catch-up client's multi-MB range read must
+                                # not sit between a submit and its ack
+                                deferred.append(frame)
+                            else:
+                                session.handle(frame)
+                        body = None
+                        if n < 64 and _frame_buffered(reader):
+                            # completes synchronously — the bytes are
+                            # already in the stream buffer
+                            body = await _read_body(reader)
+                    for frame in deferred:
+                        session.handle(frame)
+                    if deferred:
+                        counters.inc("net.ingress.deprioritized",
+                                     len(deferred))
+                    counters.inc("net.ingress.frames", n)
+                    counters.inc("net.ingress.batches")
+                    if n > 1:
+                        counters.inc("net.ingress.coalesced", n - 1)
+                    if self._log_flush:
+                        # make this batch's appends visible to the stage
+                        # processes tailing the shared log
+                        self._flush_dirty()
+                finally:
+                    if outer:
+                        self._release_held()
                 await writer.drain()
         except (ValueError, json.JSONDecodeError):
             pass  # malformed stream: drop the connection

@@ -758,9 +758,13 @@ class Fleet:
         upgrade step); without it every core must be. Generation-gated
         like :meth:`wait_claimed` (the epoch floor first — a dead
         generation's core can still answer on a recycled port), and
-        PROBE-backed: a core counts healthy only once a canary has
-        walked its doors successfully this generation, not merely once
-        its engine boots with nothing evaluated yet.
+        PROBE-backed: a core counts healthy only once a whole canary
+        pass that BEGAN after its verdict turned ``ok`` has ended with
+        every door it armed ``ok``, not merely once its engine boots
+        with nothing evaluated yet, nor once the first door of a pass
+        reports. With ``host_id`` the route door of that pass may fail
+        (a peer on a host not yet upgraded may be down); the session
+        doors may not.
 
         Returns {core_name: health dict}; raises TimeoutError with the
         failing verdicts otherwise."""
@@ -778,6 +782,9 @@ class Fleet:
         self.wait_claimed(
             timeout=max(0.1, deadline - time.monotonic()), parts=parts)
         last: dict = {}
+        # core → the prober's ``started`` count when its verdict was
+        # last seen turning ok (dropped whenever it is not ok)
+        ok_at: dict = {}
         while time.monotonic() < deadline:
             verdicts = {}
             ok = True
@@ -792,10 +799,7 @@ class Fleet:
                 except (OSError, ValueError, RuntimeError) as e:
                     h = {"verdict": "unreachable", "error": str(e)}
                 verdicts[self.spec.core_name(i)] = h
-                doors = ((h.get("probes") or {}).get("doors") or {})
-                probed = any(d.get("probes", 0) and d.get("ok")
-                             for d in doors.values())
-                if h.get("verdict") != "ok" or not probed:
+                if not self._probed_ok(i, h, ok_at, host_id is not None):
                     ok = False
             last = verdicts
             if ok:
@@ -804,6 +808,26 @@ class Fleet:
         summary = {name: h.get("verdict") for name, h in last.items()}
         raise TimeoutError(
             f"fleet: not healthy after {timeout}s: {summary}")
+
+    @staticmethod
+    def _probed_ok(i: int, h: dict, ok_at: dict, route_may_fail: bool
+                   ) -> bool:
+        """One core's gate of :meth:`wait_healthy`: its verdict is ok,
+        and its prober's last ended pass began after the verdict was
+        first seen ok and armed at least one door, all of them ok
+        (``route`` excepted when ``route_may_fail``)."""
+        passes = (h.get("probes") or {}).get("passes") or {}
+        if h.get("verdict") != "ok":
+            ok_at.pop(i, None)
+            return False
+        if i not in ok_at:
+            ok_at[i] = passes.get("started", 0)
+            return False
+        last = passes.get("last") or {}
+        doors = {d: v for d, v in (last.get("doors") or {}).items()
+                 if not (route_may_fail and d == "route")}
+        return (last.get("n", 0) > ok_at[i] and bool(doors)
+                and all(doors.values()))
 
 
 class _StorageRunner:

@@ -5,9 +5,11 @@ One module-scoped topology: the port's front end in this process (on a
 background thread) and three gateway processes of the port in front of
 it, two native (the default: g++ builds ``csrc/gateway.cpp`` into
 ``build/torch_kernels/`` at first use) and one started with ``--python``.
-The twins of the JAX topology tests run on it (not the example demos,
-which run the JAX package's examples, and not the secured topology, whose
-tenancy is ROADMAP A10), plus a JAX client through the port's native
+The twins of the JAX topology tests run on it, and the three example
+demos of that file (``shared_text``, ``clicker``, ``table_doc``) as the
+port's own apps (``fluidframework_tpu_torch/examples/``), their editor
+processes dialing the first native gateway (not the secured topology,
+whose tenancy is ROADMAP A10), plus a JAX client through the port's native
 relay, the native relay's library, the refusal to fall back to the
 Python relay, and the sharded routing options, which take the Python
 relay as in the JAX package.
@@ -355,3 +357,37 @@ def test_unported_gateway_options_raise(monkeypatch, tmp_path, flag, relay):
     routed = gateway.Gateway("127.0.0.1", 1, shard_dir="x", shards=2)
     assert routed.routing is not None and routed.placement.n == 2
     assert gateway.Gateway("127.0.0.1", 1, shards=2).routing is None
+
+
+def _run_app(app: str, port: int, capfd) -> str:
+    """The port's app ``run_clients`` against ``port``; its stdout."""
+    from importlib import import_module
+
+    mod = import_module(f"fluidframework_tpu_torch.examples.{app}")
+    assert mod.run_clients(port) == 0
+    return capfd.readouterr().out
+
+
+def test_shared_text_example_demo_converges(topology, capfd):
+    """Two editor processes edit concurrently through a gateway and
+    render identical documents."""
+    out = _run_app("shared_text", topology[1], capfd)
+    assert "CONVERGED" in out
+    assert "⟦verify deli ordering claim⟧" in out  # anchored comment
+    assert "**Welcome**" in out  # bold annotation rendered
+
+
+def test_clicker_example_demo_converges(topology, capfd):
+    """BASELINE config 2: 4 clicker processes hammer one counter through
+    a gateway and the total converges."""
+    out = _run_app("clicker", topology[1], capfd)
+    assert "CONVERGED: 4 processes x 25 clicks = 100" in out
+
+
+def test_table_doc_example_demo_converges(topology, capfd):
+    """Matrix + map + string in one container: two editor processes,
+    a row insert racing cell writes, identical tables."""
+    out = _run_app("table_doc", topology[1], capfd)
+    assert "CONVERGED" in out
+    assert "TOTAL" in out
+    assert "region" in out

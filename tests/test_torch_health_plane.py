@@ -17,7 +17,10 @@ The cases of ``tests/test_health_plane.py``:
 * one in-process port fleet with ``spec.health`` armed answers
   ``wait_healthy`` probe-backed and ``ok``, fleet-wide through
   ``admin_health``, with no canary trace in heat, hop windows, buckets
-  or the scrape; an unarmed port fleet times out.
+  or the scrape; an unarmed port fleet times out;
+* C10: with a real prober held between its ``history`` and ``route``
+  doors, the JAX gate returns early and the port's waits for a whole
+  pass that began once the verdict was ``ok``.
 
 Comparisons are exact.
 """
@@ -372,3 +375,103 @@ def test_wait_healthy_times_out_on_unarmed_fleet(tmp_path):
         assert "unknown" in str(ei.value)
     finally:
         fl.stop()
+
+
+class _CanaryChannel:
+    """A stand-in for the driver's ``_Transport`` under a real
+    ``CanaryProber``: connect answers, a submit's broadcast comes back at
+    once, and a ping's pong waits for ``hold`` (the prober then sits
+    between its ``history`` and ``route`` doors)."""
+
+    def __init__(self, hold):
+        self.hold = hold
+        self.push = {}
+
+    def request_rid(self, frame):
+        return 0, {"clientId": "canary-client", "seq": 0}
+
+    def on_push(self, kind, fn):
+        self.push[kind] = fn
+
+    def send(self, frame):
+        if frame["t"] == "submit":
+            self.push["ops"]({"msgs": [{"client_id": "canary-client"}]})
+        elif frame["t"] == "ping":
+            self.hold.wait(10.0)
+            self.push["pong"]({})
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("host_id", [None, "h0"])
+def test_wait_healthy_waits_for_a_whole_pass_after_ok(monkeypatch,
+                                                      tmp_path, host_id):
+    """C10: a core's verdict is ok while its canary holds between the
+    ``history`` and ``route`` doors. The JAX gate returns then, with no
+    ``route`` door in the verdict; the port's returns only after a pass
+    that began once the verdict was ok has ended, every door it armed
+    reporting (with ``host_id`` too, where a failing route is let pass)."""
+    import threading
+    import time
+
+    import fluidframework_tpu.service.placement_plane as jax_plane
+    import fluidframework_tpu.service.topology as jax_topology
+    import fluidframework_tpu_torch.service.placement_plane as port_plane
+    import fluidframework_tpu_torch.service.topology as port_topology
+
+    hold = threading.Event()
+    prober = PORT.probe.CanaryProber(
+        dial=lambda host, port: _CanaryChannel(hold), host="127.0.0.1",
+        port=1, core="core0", doc_fn=lambda: "__probe__0",
+        peers_fn=lambda: {"core0": {"addr": "127.0.0.1:1", "host": "h0"},
+                          "core1": {"addr": "127.0.0.1:2", "host": "h1"}},
+        registry=PORT.metrics.MetricsRegistry(),
+        journal=PORT.journal.Journal(None), tick_s=0.02)
+
+    def admin_rpc(host, port, frame, timeout=None):
+        return {"health": {"verdict": "ok", "probes": prober.status()}}
+
+    def fleet(topology):
+        spec = topology.default_spec(str(tmp_path / topology.__name__),
+                                     n_cores=1, n_partitions=1)
+        fl = topology.Fleet(spec)
+        fl.core_ports = {0: 1}
+        fl.wait_claimed = lambda **kw: None
+        return fl
+
+    monkeypatch.setattr(jax_plane, "admin_rpc", admin_rpc)
+    monkeypatch.setattr(port_plane, "admin_rpc", admin_rpc)
+    monkeypatch.setattr(port_topology.TopologySpec, "core_host",
+                        lambda self, i: "h0")
+    prober.start()
+    try:
+        deadline = time.monotonic() + 10.0
+        while "history" not in prober.status()["doors"]:
+            assert time.monotonic() < deadline
+            hold.wait(0.01)
+        assert "route" not in prober.status()["doors"]
+        if host_id is None:
+            early = fleet(jax_topology).wait_healthy(timeout=5.0)
+            assert "route" not in early["core0"]["probes"]["doors"]
+        got = {}
+        waiter = threading.Thread(target=lambda: got.update(fleet(
+            port_topology).wait_healthy(host_id=host_id, timeout=20.0)))
+        waiter.start()
+        waiter.join(1.0)
+        assert waiter.is_alive() and not got
+        assert prober.status()["passes"]["last"] == {}
+        hold.set()
+        waiter.join(20.0)
+        assert not waiter.is_alive()
+        status = got["core0"]["probes"]
+        last = status["passes"]["last"]
+        assert last["n"] >= 2
+        assert last["doors"] == {"connect": True, "submit": True,
+                                 "history": True, "route": True}
+        for door in ("connect", "submit", "history", "route"):
+            assert status["doors"][door]["probes"] > 0
+            assert status["doors"][door]["ok"]
+    finally:
+        hold.set()
+        prober.stop()

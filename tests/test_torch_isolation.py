@@ -11,6 +11,7 @@ card.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -127,6 +128,39 @@ CLIENT_APPLICATION_LAYER = (
     "framework/request_handler.py", "framework/synthesize.py",
     "runtime/agent_scheduler.py", "runtime/intel_runner.py",
     "loader/url_resolver.py", "replay/record.py", "testing/apps.py")
+
+
+#: the operator and developer surface: the admin CLI, the dev host, the
+#: seven example apps it loads by name and the offline bundle doctor
+OPERATOR_SURFACE = (
+    "admin.py", "host.py", "examples/__init__.py", "examples/shared_text.py",
+    "examples/clicker.py", "examples/table_doc.py", "examples/todo.py",
+    "examples/canvas.py", "examples/sudoku.py", "examples/album.py",
+    "tools/doctor.py")
+#: a module of the repo's ``examples/`` (an f-string part may end at the
+#: dot)
+REPO_APP = re.compile(r"(?<![\w/.])examples\.(\w|$)")
+
+
+def test_sources_cover_the_operator_surface():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(OPERATOR_SURFACE)
+
+
+@pytest.mark.parametrize("name", OPERATOR_SURFACE)
+def test_operator_surface_names_no_repo_root_app(name):
+    """No string of the operator surface names a module of the repo's
+    ``examples/`` (apps that run on the JAX package): the dev host and the
+    apps spawn and import only ``fluidframework_tpu_torch.examples``."""
+    bad = [s for s in _strings(PORT / name) if REPO_APP.search(s)]
+    assert not bad, f"{name} names {bad}"
+
+
+def test_app_name_check_sees_the_jax_host():
+    """The check is not vacuous: the JAX dev host's import of the repo's
+    ``examples.<app>`` is what it refuses."""
+    path = ROOT / "fluidframework_tpu" / "host.py"
+    assert [s for s in _strings(path) if REPO_APP.search(s)]
 
 
 def test_sources_cover_the_client_application_layer():

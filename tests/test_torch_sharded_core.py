@@ -14,6 +14,13 @@ Over sockets, still in process: two port front ends with
 ``admin_migrate_part``, ``admin_core_heat``, ``admin_rebalance_status``,
 ``admin_placement_drain``) and route each doc to its partition's owner.
 
+Also in process, the rest of ``tests/test_sharded_core.py``: a core
+whose loop stalls past the lease TTL is revoked and its client moves
+through the port's shard-routing gateway; the lease registry's claim,
+heartbeat and takeover; the port's ``admin tenant-add`` securing a
+partition claimed later; two concurrent connects through a fresh gateway
+with no duplicate broadcast.
+
 As processes (the one subprocess test of this file): a fleet of the
 port's modules started from one ``TopologySpec`` (two cores, one
 gateway) serves a ``Loader`` through the gateway across a migration and
@@ -358,3 +365,233 @@ def test_fleet_from_spec_rides_migration_and_takeover(tmp_path):
         assert s0.get_text() == "before migrated taken over"
     finally:
         fl.stop()
+
+
+# ------------------- twins of the rest of tests/test_sharded_core.py, in
+# process: cores are port front ends with ``shard_host=`` on background
+# threads, the shard-routing gateway a port ``Gateway`` on its own loop
+
+#: the lease TTL of the takeover twins: the JAX file's 1.5 s is for cores
+#: in processes of their own; here two cores, a gateway and the clients
+#: share one interpreter, so their lease polls get twice the slack
+SHARD_TTL = 3.0
+
+
+class _Gateway:
+    """The port's shard-routing gateway (``gateway --shard-dir D
+    --shards 2``) on a loop thread of this process."""
+
+    def __init__(self, shard: str):
+        import asyncio
+        import threading
+
+        from fluidframework_tpu_torch.service.gateway import Gateway
+
+        self.gw = Gateway("127.0.0.1", 0, shard_dir=shard, shards=2)
+        ready = threading.Event()
+
+        def run():
+            self.loop = asyncio.new_event_loop()
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.gw._start())
+            ready.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        assert ready.wait(10)
+        self.port = self.gw.port
+
+    def stop(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+
+
+def _shard_core(shard: str, prefer: int, ttl_s: float = SHARD_TTL,
+                **kw) -> NetworkFrontEnd:
+    return NetworkFrontEnd(shard_host=ShardHost(
+        shard, 2, prefer=(prefer,), ttl_s=ttl_s), **kw).start_background()
+
+
+def _stop_cores(fronts) -> None:
+    for front in fronts:
+        front.stop()
+    for front in fronts:
+        for s in front.shard_host.servers.values():
+            s.log.close()
+
+
+def test_stalled_core_is_revoked_and_clients_move(tmp_path):
+    """A core whose loop stalls past the lease TTL (the GC-pause model,
+    a ``SIGSTOP`` in the JAX test) is dispossessed while alive: on resume
+    its heartbeat fails, it revokes the partition, and the client lands
+    on the takeover owner through the gateway by auto-reconnect."""
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+
+    shard = str(tmp_path / "deploy")
+    fronts = [_shard_core(shard, 0), _shard_core(shard, 1)]
+    gw = _Gateway(shard)
+    try:
+        d0 = _docs(1, tenant="t")[0][0]
+        loader = Loader(NetworkDocumentServiceFactory("127.0.0.1", gw.port),
+                        auto_reconnect=True)
+        c = loader.resolve("t", d0)
+        s = c.runtime.create_data_store("default").create_channel(
+            "text", "shared-string")
+        s.insert_text(0, "before stall ")
+        assert wait_for(lambda: c.runtime.pending.count == 0)
+        assert 0 in fronts[0].shard_host.servers
+
+        # the lease goes stale while core 0's loop sleeps; core 1 claims
+        fronts[0]._loop.call_soon_threadsafe(time.sleep, SHARD_TTL + 1.0)
+        assert wait_for(lambda: 0 in fronts[1].shard_host.servers,
+                        timeout=30)
+
+        def can_edit():
+            if not c.connected:
+                return False
+            try:
+                s.insert_text(0, "y")
+                return True
+            except RuntimeError:
+                return False
+        assert wait_for(can_edit, timeout=30)
+        s.insert_text(len(s.get_text()), " after")
+        assert wait_for(lambda: c.runtime.pending.count == 0, timeout=30)
+        assert wait_for(lambda: 0 not in fronts[0].shard_host.servers)
+
+        c2 = loader.resolve("t", d0)
+        assert wait_for(
+            lambda: "default" in c2.runtime.data_stores
+            and "text" in c2.runtime.get_data_store("default").channels
+            and c2.runtime.get_data_store("default").get_channel(
+                "text").get_text() == s.get_text(), timeout=30)
+        c.close()
+        c2.close()
+    finally:
+        gw.stop()
+        _stop_cores(fronts)
+
+
+def test_lease_registry_claim_heartbeat_takeover(tmp_path):
+    from fluidframework_tpu_torch.service.placement import PlacementDir
+
+    pd = PlacementDir(str(tmp_path / "pl"), 2, ttl_s=0.3)
+    assert pd.try_claim(0, "a", "addr-a")
+    assert pd.owner_of(0) == "addr-a"
+    # live lease refuses another claimant
+    assert not pd.try_claim(0, "b", "addr-b")
+    # heartbeat keeps it alive across the ttl
+    for _ in range(3):
+        time.sleep(0.15)
+        assert pd.heartbeat(0, "a")
+    assert pd.owner_of(0) == "addr-a"
+    # stop heartbeating: stale → takeover succeeds
+    time.sleep(0.4)
+    assert pd.owner_of(0) is None
+    assert pd.try_claim(0, "b", "addr-b")
+    assert pd.owner_of(0) == "addr-b"
+    # the loser notices on its next heartbeat and must stop serving
+    assert not pd.heartbeat(0, "a")
+    # release clears the file
+    pd.release(0, "b")
+    assert pd.owner_of(0) is None
+
+
+def test_admin_tenant_add_secures_partitions_claimed_later(tmp_path):
+    """The port's ``admin tenant-add`` on one sharded core secures docs
+    in partitions this core claims later by lease takeover, and the
+    other core reloads the deployment-wide registry on its lease poll."""
+    from fluidframework_tpu_torch import admin
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+    from fluidframework_tpu_torch.service.tenants import sign_token
+
+    shard = str(tmp_path / "deploy")
+    fronts = [_shard_core(shard, 0, admin_secret="adm1n"),
+              _shard_core(shard, 1, admin_secret="adm1n")]
+    p0, p1 = fronts[0].port, fronts[1].port
+    try:
+        assert admin.main(["--port", str(p1), "--admin-secret", "adm1n",
+                           "tenant-add", "acme", "shh"]) == 0
+        d0 = _docs(1, tenant="acme")[0][0]  # a partition core 1 lacks
+        assert 0 not in fronts[1].shard_host.servers
+
+        time.sleep(SHARD_TTL)  # > ttl/3 poll cadence
+        unsigned0 = Loader(NetworkDocumentServiceFactory("127.0.0.1", p0))
+        with pytest.raises(RuntimeError):
+            unsigned0.resolve("acme", d0)
+
+        # core 0 dies (its leases are left to go stale); core 1 claims
+        fronts[0].stop()
+        assert wait_for(lambda: 0 in fronts[1].shard_host.servers,
+                        timeout=30)
+        unsigned = Loader(NetworkDocumentServiceFactory("127.0.0.1", p1))
+        with pytest.raises(RuntimeError):
+            unsigned.resolve("acme", d0)
+        signed = Loader(NetworkDocumentServiceFactory(
+            "127.0.0.1", p1,
+            token_provider=lambda t, d: sign_token(t, d, "shh")))
+        c = signed.resolve("acme", d0)
+        assert c.connected
+        c.close()
+    finally:
+        _stop_cores(fronts)
+
+
+def test_concurrent_connects_no_duplicate_broadcasts(tmp_path):
+    """Two clients of one doc connecting concurrently through a fresh
+    gateway get every broadcast once (the gateway's lazy per-core dial
+    must not open two backbone connections)."""
+    import threading
+
+    from fluidframework_tpu_torch.driver.network import (
+        NetworkDocumentServiceFactory,
+    )
+    from fluidframework_tpu_torch.loader import Loader
+
+    shard = str(tmp_path / "deploy")
+    # no takeover here: a long TTL keeps a loaded test process's lease
+    # polls from dropping the partitions mid-connect
+    fronts = [_shard_core(shard, 0, ttl_s=30.0),
+              _shard_core(shard, 1, ttl_s=30.0)]
+    gw = _Gateway(shard)
+    try:
+        d0 = _docs(1, tenant="t")[0][0]
+        loader = Loader(NetworkDocumentServiceFactory("127.0.0.1", gw.port))
+        results = [None, None]
+
+        def resolve(i):
+            results[i] = loader.resolve("t", d0)
+
+        threads = [threading.Thread(target=resolve, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        c1, c2 = results
+        assert c1 is not None and c2 is not None
+
+        s1 = c1.runtime.create_data_store("default").create_channel(
+            "text", "shared-string")
+        for i in range(10):
+            s1.insert_text(0, f"x{i}")
+        assert wait_for(lambda: c1.runtime.pending.count == 0)
+        assert wait_for(
+            lambda: c2.runtime.data_stores and "text" in
+            c2.runtime.get_data_store("default").channels and
+            c2.runtime.get_data_store("default").get_channel(
+                "text").get_text() == s1.get_text())
+        assert c1.delta_manager.duplicates_received == 0
+        assert c2.delta_manager.duplicates_received == 0
+        c1.close()
+        c2.close()
+    finally:
+        gw.stop()
+        _stop_cores(fronts)
