@@ -8,9 +8,15 @@ version on the card at the main path's shapes and on six more cases that
 reach its other paths (S from 16 to 1024, overflow), then drives the
 replica farm
 (``GpuDocumentApplier`` at D=1024 docs, S=256 slots, K=32 ops per wave)
-through its entry points and checks every doc's text, and finally drives
-the service path: ``service/load_gen.run_inproc`` (clients → LocalServer →
-deli → scriptorium, scribe, broadcaster) at 1024 docs × 2 clients × 48 ops
+through its entry points and checks every doc's text. ``farms`` then
+feeds the same farm width 1,024 docs of the merge-tree convergence farms'
+sessions (conflict, inserts and removes, reconnect, reconnect storm,
+long-document growth; six spawned host processes make them and hold a
+CPU reference farm) and holds every doc, text and rich text, against its
+session's clients and the CPU farm, escalations doc by doc. Then it
+drives the service path: ``service/load_gen.run_inproc`` (clients →
+LocalServer → deli → scriptorium, scribe, broadcaster) at 1024 docs × 2
+clients × 48 ops
 with the async, overlap-staged applier riding the broadcast, held against
 a CPU applier, against itself with overlap off, and on the dict lane.
 Then the crash-safe applier stage: the service applier is checkpointed,
@@ -368,6 +374,199 @@ def phase_main_path(power: str):
           "ms_per_dispatch": seconds * 1e3 / gpu.dispatches,
           "farm_docs": len(sessions), "farm_ops": farm_ops,
           "launches": launches, "host_escalations": 0, "card": power})
+    return launches
+
+
+FARM_DOCS = 1024
+FARM_GROWTH_DOCS = 16
+FARM_GEO = dict(max_docs=1024, max_slots=256, ops_per_dispatch=32)
+# past the JAX farm tests' own seeds (conflict 1-7, inserts/removes 0-7,
+# reconnect 0-5, storm 0-5, growth 42)
+FARM_FIRST_SEED = 100
+# a worker past this many seconds of generation makes no new session:
+# its other docs repeat its earlier sessions under their own doc ids
+FARM_GEN_BUDGET_S = 45.0
+# host processes that make the sessions and hold the CPU reference farm
+FARM_WORKERS = 6
+FARM_FAMILIES = ("conflict", "inserts_removes", "reconnect", "storm")
+
+
+def farm_plan(n_docs: int, n_growth: int) -> list:
+    """[(doc, family, seed)]: ``n_growth`` growth docs, the rest dealt in
+    turn to the conflict, inserts and removes, reconnect and
+    reconnect-storm farms."""
+    plan = [(f"farm{i}", "growth", FARM_FIRST_SEED + i)
+            for i in range(n_growth)]
+    for k in range(n_docs - n_growth):
+        plan.append((f"farm{n_growth + k}",
+                     FARM_FAMILIES[k % len(FARM_FAMILIES)],
+                     FARM_FIRST_SEED + k // len(FARM_FAMILIES)))
+    return plan
+
+
+def _farm_worker(conn, plan: list, budget_s: float) -> None:
+    """One host process of the farms phase: make the sessions of ``plan``
+    and send (doc, family, seed, log, text, rich text, repeat) for each,
+    then feed the same logs to a CPU applier and send its docs' text,
+    rich text and escalations, its applied rows and seconds."""
+    torch.set_num_threads(1)
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+    )
+    from fluidframework_tpu_torch.testing import farm
+
+    t0 = time.perf_counter()
+    made = []
+    for doc, family, seed in plan:
+        if len(made) and time.perf_counter() - t0 > budget_s:
+            _, family, seed, log, text, rich, _ = made[len(made) % len(
+                [m for m in made if not m[-1]])]
+            made.append((doc, family, seed, log, text, rich, True))
+            continue
+        log, clients = getattr(farm, f"{family}_session")(seed)
+        made.append((doc, family, seed, log, clients[0].text(),
+                     clients[0].rich_text(), False))
+    conn.send((made, time.perf_counter() - t0))
+    t1 = time.perf_counter()
+    logs = {m[0]: m[3] for m in made}
+    app = GpuDocumentApplier(device="cpu", max_docs=len(plan),
+                             max_slots=FARM_GEO["max_slots"],
+                             ops_per_dispatch=FARM_GEO["ops_per_dispatch"])
+    app.set_replay_source(lambda t, d: logs[d])
+    for doc, log in logs.items():
+        app.ingest_batch("t", doc, [(m, m.contents) for m in log])
+    app.finalize()
+    docs = {}
+    for doc in logs:
+        tree = app.get_tree("t", doc)
+        docs[doc] = (tree.get_text(), farm.rich_text(tree),
+                     app.slot_of("t", doc) in app._host_docs)
+    conn.send({"docs": docs, "ops_applied": app.ops_applied,
+               "seconds": time.perf_counter() - t1})
+    conn.close()
+
+
+def phase_farms(power: str, device: str = "cuda"):
+    """The merge-tree farms' streams (conflict, inserts and removes,
+    reconnect, reconnect storm, long-document growth) through the card
+    farm at the main path's width: every doc equals its session's
+    converged clients (text and rich text) and a CPU applier fed the same
+    logs (held by ``FARM_WORKERS`` host processes, which also make the
+    sessions), with the same escalations doc by doc."""
+    import multiprocessing
+
+    from fluidframework_tpu_torch.ops import cuda_apply
+    from fluidframework_tpu_torch.service.gpu_applier import (
+        GpuDocumentApplier,
+    )
+    from fluidframework_tpu_torch.testing.farm import rich_text
+
+    t_phase = time.perf_counter()
+    plan = farm_plan(FARM_DOCS, FARM_GROWTH_DOCS)
+    ctx = multiprocessing.get_context("spawn")
+    workers = []
+    try:
+        for w in range(FARM_WORKERS):
+            ours, theirs = ctx.Pipe()
+            proc = ctx.Process(target=_farm_worker, daemon=True, args=(
+                theirs, plan[w::FARM_WORKERS], FARM_GEN_BUDGET_S))
+            proc.start()
+            theirs.close()
+            workers.append((proc, ours))
+        sessions, worker_gen = {}, []
+        for _, conn in workers:
+            made, seconds = conn.recv()
+            worker_gen.append(seconds)
+            sessions.update((m[0], m) for m in made)
+        gen_seconds = time.perf_counter() - t_phase
+        docs = [doc for doc, _, _ in plan]
+        logs = {doc: sessions[doc][3] for doc in docs}
+        rows = {doc: sum(device_rows(m.contents) for m in logs[doc])
+                for doc in docs}
+
+        cuda_apply.LAUNCHES = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = GpuDocumentApplier(device=device, **FARM_GEO)
+        card.set_replay_source(lambda t, d: logs[d])
+        for doc in docs:
+            card.ingest_batch("t", doc,
+                              [(m, m.contents) for m in logs[doc]])
+        t1 = time.perf_counter()
+        card.finalize()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = cuda_apply.LAUNCHES
+
+        ref, cpu_applied, cpu_seconds = {}, 0, []
+        for _, conn in workers:
+            out = conn.recv()
+            ref.update(out["docs"])
+            cpu_applied += out["ops_applied"]
+            cpu_seconds.append(out["seconds"])
+        t3 = time.perf_counter()
+    finally:
+        for proc, conn in workers:
+            conn.close()
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    if any(proc.exitcode != 0 for proc, _ in workers):
+        fail(f"farms: a host worker exited "
+             f"{[proc.exitcode for proc, _ in workers]}")
+
+    esc_card = set()
+    for doc in docs:
+        _, family, seed, _, want_text, want_rich, _ = sessions[doc]
+        tree = card.get_tree("t", doc)
+        got = (tree.get_text(), rich_text(tree))
+        if got != (want_text, want_rich):
+            fail(f"farms: {doc} ({family} seed {seed}) on the card "
+                 "differs from its session's clients")
+        if ref[doc][:2] != got:
+            fail(f"farms: {doc} ({family} seed {seed}) on the card "
+                 "differs from the CPU applier")
+        if card.slot_of("t", doc) in card._host_docs:
+            esc_card.add(doc)
+    esc_cpu = {doc for doc in docs if ref[doc][2]}
+    if esc_card != esc_cpu or card.host_escalations != len(esc_card):
+        fail(f"farms: escalations differ: card {sorted(esc_card)}, cpu "
+             f"{sorted(esc_cpu)}")
+    total_rows = sum(rows.values())
+    if card.ops_applied != total_rows or cpu_applied != total_rows:
+        fail(f"farms: the card applied {card.ops_applied} rows, the CPU "
+             f"applier {cpu_applied}, of {total_rows} fed")
+    if device == "cuda" and (launches != card.dispatches or launches == 0):
+        fail(f"farms: {launches} kernel launches for {card.dispatches} "
+             "dispatches")
+    families, esc_families = {}, {}
+    for doc, family, _ in plan:
+        families[family] = families.get(family, 0) + 1
+        if doc in esc_card:
+            esc_families[family] = esc_families.get(family, 0) + 1
+    msgs = [m for log in logs.values() for m in log]
+    emit({"phase": "farms", "docs": len(docs),
+          "slots": FARM_GEO["max_slots"], "K": FARM_GEO["ops_per_dispatch"],
+          "sessions": families,
+          "distinct_sessions": sum(not s[-1] for s in sessions.values()),
+          "ops": len(msgs), "rows": total_rows,
+          "group_ops": sum(m.contents.get("type") == 3 for m in msgs),
+          "stale_refseq_ops": sum(m.reference_sequence_number
+                                  < m.sequence_number - 1 for m in msgs),
+          "generate_seconds": gen_seconds,
+          "worker_generate_seconds": max(worker_gen),
+          "feed_seconds": t1 - t0, "finalize_seconds": t2 - t1,
+          "cpu_reference_wait_seconds": t3 - t2,
+          "cpu_reference_seconds": max(cpu_seconds),
+          "check_seconds": time.perf_counter() - t3,
+          "dispatches": card.dispatches, "launches": launches,
+          "host_escalations": card.host_escalations,
+          "escalated_by_family": esc_families, "ops_applied":
+          card.ops_applied, "phase_seconds": time.perf_counter() - t_phase,
+          "card": power})
     return launches
 
 
@@ -4575,6 +4774,7 @@ def main() -> None:
     # B1's launches in this process, by phase (the stage children's are
     # their own)
     by_phase = {"main_path": timed(phase_main_path, power)}
+    by_phase["farms"] = timed(phase_farms, power)
     timed(phase_escalation)
     by_phase["service"], app, cpu_texts, service_row = timed(
         phase_service, name, power)

@@ -66,6 +66,9 @@ from .definitions import (
 #: transport at construction so arming cannot race live connections.
 FRAME_FAULT_HOOK = None
 
+#: the longest a connect waits for the reader thread's backlog (``settle``)
+SETTLE_TIMEOUT_S = 5.0
+
 #: binwire boxcars carry a u16 op count; chunk well below it so the
 #: string pool of a pathological wave cannot overflow either
 _MAX_BOXCAR_OPS = 60000
@@ -153,6 +156,10 @@ class _Transport:
         self._fault = FRAME_FAULT_HOOK
         self._held: list[bytes] = []  # delayed frames awaiting overtake
         self._idle_windows = 0  # consecutive recv-timeout windows
+        # frames the reader has taken off the socket, and those it has
+        # finished handling (``settle``; counted under _pending_cv)
+        self._frames_read = 0
+        self._frames_done = 0
         self._reader = threading.Thread(
             target=self._read_loop, daemon=True, name="fluid-net-reader")
         self._reader.start()
@@ -243,6 +250,16 @@ class _Transport:
             raise RuntimeError(f"server error: {reply.get('message')}")
         return rid, reply
 
+    def settle(self, timeout: float) -> None:
+        """Wait until the reader has handled every frame it had read when
+        called (one it holds while waiting for ``lock`` included), or the
+        connection closed, or ``timeout`` passed."""
+        target = self._frames_read
+        with self._pending_cv:
+            self._pending_cv.wait_for(
+                lambda: self._frames_done >= target or self._closed,
+                timeout=timeout)
+
     def take_blocks(self, rid: int) -> list:
         """Claim the decoded backfill messages pushed for ``rid``."""
         return self._blocks.pop(rid, [])
@@ -307,55 +324,61 @@ class _Transport:
                 body = self._recv_exactly(int.from_bytes(header, "big"))
                 if body is None:
                     break
-                if binwire.is_binary(body):
-                    if body[1] == binwire.FT_COLS_SNAP:
-                        # snapshot chunk push: stage raw bytes by content
-                        # hash for the booting requester (decode happens
-                        # on the boot thread, not the reader)
-                        _, h, chunk = binwire.read_snap_chunk(body)
-                        self._snap_chunks[h] = chunk
-                        continue
-                    if body[1] == binwire.FT_COLS_DELTAS:
-                        # rid-tagged backfill block: decode the column
-                        # section client-side and stage it for the
-                        # requester (the terminal JSON reply arrives
-                        # after, on this same thread)
-                        brid, msgs = binwire.read_cols_deltas(body)
-                        self._blocks.setdefault(brid, []).extend(msgs)
-                        continue
-                    if body[1] == binwire.FT_HISTORY:
-                        # rid-tagged history commit (the history_log
-                        # listing): decode through the refgraph codec
-                        # and stage for the requester
-                        hrid, commit = binwire.decode_history_commit(body)
-                        self._history.setdefault(hrid, []).append(commit)
-                        continue
-                    if body[1] == binwire.FT_PRESENCE:
-                        # coalesced presence batch: one frame, N signals
-                        # (the ephemeral lane — never sequenced)
-                        cb = self.on_presence
+                self._frames_read += 1
+                try:
+                    if binwire.is_binary(body):
+                        if body[1] == binwire.FT_COLS_SNAP:
+                            # snapshot chunk push: stage raw bytes by content
+                            # hash for the booting requester (decode happens
+                            # on the boot thread, not the reader)
+                            _, h, chunk = binwire.read_snap_chunk(body)
+                            self._snap_chunks[h] = chunk
+                            continue
+                        if body[1] == binwire.FT_COLS_DELTAS:
+                            # rid-tagged backfill block: decode the column
+                            # section client-side and stage it for the
+                            # requester (the terminal JSON reply arrives
+                            # after, on this same thread)
+                            brid, msgs = binwire.read_cols_deltas(body)
+                            self._blocks.setdefault(brid, []).extend(msgs)
+                            continue
+                        if body[1] == binwire.FT_HISTORY:
+                            # rid-tagged history commit (the history_log
+                            # listing): decode through the refgraph codec
+                            # and stage for the requester
+                            hrid, commit = binwire.decode_history_commit(body)
+                            self._history.setdefault(hrid, []).append(commit)
+                            continue
+                        if body[1] == binwire.FT_PRESENCE:
+                            # coalesced presence batch: one frame, N signals
+                            # (the ephemeral lane — never sequenced)
+                            cb = self.on_presence
+                            if cb is not None:
+                                sigs = binwire.decode_presence(body)
+                                with self.lock:
+                                    cb(sigs)
+                            continue
+                        cb = self.on_binary_ops
                         if cb is not None:
-                            sigs = binwire.decode_presence(body)
+                            _, msgs = binwire.decode_ops(body)
                             with self.lock:
-                                cb(sigs)
+                                cb(msgs)
                         continue
-                    cb = self.on_binary_ops
-                    if cb is not None:
-                        _, msgs = binwire.decode_ops(body)
-                        with self.lock:
-                            cb(msgs)
-                    continue
-                frame = json.loads(body.decode())
-                rid = frame.get("rid")
-                if rid is not None:
+                    frame = json.loads(body.decode())
+                    rid = frame.get("rid")
+                    if rid is not None:
+                        with self._pending_cv:
+                            self._pending[rid] = frame
+                            self._pending_cv.notify_all()
+                    else:
+                        handler = self._push_handlers.get(frame.get("t"))
+                        if handler is not None:
+                            with self.lock:
+                                handler(frame)
+                finally:
                     with self._pending_cv:
-                        self._pending[rid] = frame
+                        self._frames_done += 1
                         self._pending_cv.notify_all()
-                else:
-                    handler = self._push_handlers.get(frame.get("t"))
-                    if handler is not None:
-                        with self.lock:
-                            handler(frame)
         except Exception as e:  # a raising push handler must not leave
             reason = f"reader failed: {e}"  # requesters hanging silently
         finally:
@@ -829,6 +852,13 @@ class NetworkDeltaConnection(DocumentDeltaConnection):
 
     def submit_signal(self, content: Any, type: str = "signal") -> None:
         self._t.send({"t": "signal", "content": content, "type": type})
+
+    def settle(self) -> None:
+        """Let the reader thread handle every frame it has read: the
+        delta manager's connect-time catch-up holds ``lock``, so a frame
+        that arrived meanwhile (behind a gateway, the client's own join)
+        waits on it (ROADMAP C14)."""
+        self._t.settle(SETTLE_TIMEOUT_S)
 
     def _fire_disconnect(self, reason: str) -> None:
         """Exactly-once disconnect notification: close() and the reader

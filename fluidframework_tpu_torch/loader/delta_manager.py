@@ -5,7 +5,9 @@ imports rebased to this package. One repair (ROADMAP C2): work a caller's
 thread does on the stream (submits, the connect-time catch-up, stepping
 the inbound queue) holds the lock the connection's reader thread
 dispatches under (``dispatch_guard``), and the runtime holds it around
-record-then-send and the reconnect replay.
+record-then-send and the reconnect replay. Its consequence (ROADMAP C14):
+``connect`` lets the reader thread handle the frames it read during the
+catch-up (``settle``) before it returns.
 
 Ref: loader/container-loader/src/deltaManager.ts — inbound sequenced ops
 with gap detection + reorder buffer and backfill fetch (:1188, :432, :647),
@@ -139,6 +141,13 @@ class DeltaManager:
                 # subscription history; everything from the handshake on
                 # arrives live (incl. our join)
                 self._fetch_missing(upto=conn.initial_sequence_number)
+            # what the reader thread read during the catch-up waited for
+            # the guard: let it land before returning, so that a join
+            # that arrived then activates the connection here, as it
+            # does when nothing holds the reader (ROADMAP C14)
+            settle = getattr(conn, "settle", None)
+            if settle is not None:
+                settle()
         except BaseException:
             # a half-opened connection must not wedge future connects: a
             # still-pending _pending_connection makes connect() an early-

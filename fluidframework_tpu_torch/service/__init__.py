@@ -21,16 +21,24 @@ tenants by rate and SLO burn, ``foreman`` brokers tasks to external
 workers, and ``copier`` archives the raw ops topic.
 """
 
-__all__ = ["Gateway", "NetworkFrontEnd"]
+# the JAX package's names, each resolved from its module on first use, so
+# that ``python -m`` of the front end or the gateway does not find its own
+# module already imported and a socket worker loads no more than it uses
+_LAZY = {
+    "CheckpointManager": "core", "InMemoryDb": "core", "Lambda": "core",
+    "LambdaContext": "core", "DeliCheckpoint": "deli",
+    "DeliLambda": "deli", "RawMessage": "deli", "LocalLog": "local_log",
+    "LocalOrderer": "local_orderer", "LocalServer": "local_server",
+    "ServerConnection": "local_server", "NetworkFrontEnd": "front_end",
+    "Gateway": "gateway",
+}
+
+__all__ = sorted(_LAZY)
 
 
 def __getattr__(name: str):
-    # resolved on first use, so that ``python -m`` of the front end or
-    # the gateway does not find its own module already imported
-    if name == "NetworkFrontEnd":
-        from .front_end import NetworkFrontEnd
-        return NetworkFrontEnd
-    if name == "Gateway":
-        from .gateway import Gateway
-        return Gateway
-    raise AttributeError(name)
+    if name not in _LAZY:
+        raise AttributeError(name)
+    from importlib import import_module
+
+    return getattr(import_module(f".{_LAZY[name]}", __name__), name)

@@ -138,6 +138,9 @@ class PresenceLane:
         if not self._store:
             return 0
         store, self._store = self._store, {}
+        # counted before any byte leaves: a subscriber that sees this
+        # flush's batch finds it counted
+        self.counters.inc("presence.lane.flushes")
         delivered = 0
         for topic, bucket in store.items():
             subs = self._subs.get(topic)
@@ -150,7 +153,6 @@ class PresenceLane:
                     delivered += 1
                 except Exception:
                     pass  # a dying session must not poison the tick
-        self.counters.inc("presence.lane.flushes")
         if delivered:
             self.counters.inc("presence.lane.delivered", delivered)
         return delivered

@@ -8,16 +8,20 @@ from .telemetry import (  # noqa: F401
     HOP_DELI,
     HOP_EXECUTE,
     HOP_FANOUT,
+    HOP_ORDER,
+    HOP_PIPELINE,
     HOP_RELAY,
     HOP_SHED,
     HOP_STAGE,
     HOP_SUBMIT,
     HOPS,
+    BufferSink,
     Counters,
     PerformanceEvent,
     TelemetryLogger,
     TraceAggregator,
     count_unknown_hops,
+    hop_pair_name,
     hop_pairs,
     percentile,
 )

@@ -148,6 +148,22 @@ class TelemetryLogger:
         return PerformanceEvent(self, event, fields)
 
 
+class BufferSink:
+    """Ring-buffer sink for tests and the /repl-style debug surface."""
+
+    def __init__(self, capacity: int = 4096):
+        self.capacity = capacity
+        self.records: list[dict] = []
+
+    def __call__(self, record: dict) -> None:
+        self.records.append(record)
+        if len(self.records) > self.capacity:
+            del self.records[: len(self.records) - self.capacity]
+
+    def of(self, event: str) -> list[dict]:
+        return [r for r in self.records if r["event"] == event]
+
+
 class PerformanceEvent:
     """Scoped timing (ref: PerformanceEvent logger.ts:434): emits
     ``<event>_end`` with duration_ms on success, ``<event>_cancel`` with

@@ -1,9 +1,9 @@
 """The port's relay tier (``service/gateway.py`` and the native relay built
 from ``csrc/gateway.cpp``) against ``tests/test_gateway.py``.
 
-One module-scoped topology: the port's front end in this process (on a
-background thread) and three gateway processes of the port in front of
-it, two native (the default: g++ builds ``csrc/gateway.cpp`` into
+One module-scoped topology: the port's front end as a process (as in
+the JAX twin) and three gateway processes of the port in front of it,
+two native (the default: g++ builds ``csrc/gateway.cpp`` into
 ``build/torch_kernels/`` at first use) and one started with ``--python``.
 The twins of the JAX topology tests run on it, and the three example
 demos of that file (``shared_text``, ``clicker``, ``table_doc``) as the
@@ -33,8 +33,6 @@ from fluidframework_tpu_torch.driver.network import (
 )
 from fluidframework_tpu_torch.loader import Loader
 from fluidframework_tpu_torch.native import build as native_build
-from fluidframework_tpu_torch.service import NetworkFrontEnd
-from fluidframework_tpu_torch.service.local_server import LocalServer
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -63,24 +61,26 @@ def wait_for(cond, timeout=10.0):
 
 @pytest.fixture(scope="module")
 def topology():
-    """The port's core in process, two native gateways and one Python
-    gateway as processes: yields (core port, native 1, native 2, python,
-    the gateway processes)."""
-    fe = NetworkFrontEnd(LocalServer()).start_background()
+    """The port's core, two native gateways and one Python gateway, all
+    processes (the core as the JAX twin runs its own, so that its loop
+    shares no interpreter with the clients' threads, ROADMAP C13):
+    yields (core port, native 1, native 2, python, the gateway
+    processes)."""
+    core, core_port = _spawn(
+        ["fluidframework_tpu_torch.service.front_end", "--port", "0"])
     gw = "fluidframework_tpu_torch.service.gateway"
     procs = []
     try:
         ports = []
         for extra in ([], [], ["--python"]):
-            proc, port = _spawn([gw, "--core-port", str(fe.port), *extra])
+            proc, port = _spawn([gw, "--core-port", str(core_port), *extra])
             procs.append(proc)
             ports.append(port)
-        yield (fe.port, *ports, procs)
+        yield (core_port, *ports, procs)
     finally:
-        for proc in procs:
+        for proc in procs + [core]:
             proc.terminate()
             proc.wait(timeout=10)
-        fe.stop()
 
 
 def _text(container, name="text"):

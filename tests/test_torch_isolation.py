@@ -12,6 +12,8 @@ card.
 
 import ast
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -140,6 +142,38 @@ OPERATOR_SURFACE = (
 #: a module of the repo's ``examples/`` (an f-string part may end at the
 #: dot)
 REPO_APP = re.compile(r"(?<![\w/.])examples\.(\w|$)")
+
+
+#: the merge-tree farms' sessions the smoke's ``farms`` phase feeds the
+#: card, and the modules their twins repaired or completed
+FARMS = ("testing/farm.py", "driver/network.py", "loader/delta_manager.py",
+         "service/presence.py", "protocol/__init__.py",
+         "service/__init__.py", "utils/__init__.py", "utils/telemetry.py")
+
+
+def test_sources_cover_the_farm_generators():
+    assert {str(p.relative_to(PORT)) for p in SOURCES
+            if p.is_relative_to(PORT)} >= set(FARMS)
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
+def test_farm_generators_load_nothing_of_jax():
+    """Each farm family's generator runs in a fresh interpreter with no
+    module of JAX or of the JAX package loaded."""
+    code = (
+        "import sys\n"
+        "from fluidframework_tpu_torch.testing import farm\n"
+        "for name in ('conflict', 'inserts_removes', 'reconnect', "
+        "'storm', 'growth'):\n"
+        "    log, clients = getattr(farm, name + '_session')(1)\n"
+        "    assert log and clients[0].text() == clients[-1].text()\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'fluidframework_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_sources_cover_the_operator_surface():

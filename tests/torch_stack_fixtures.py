@@ -287,3 +287,84 @@ def twin(scenario) -> None:
         scenario(t)
         records[pkg] = t.record()
     assert records["torch"] == records["jax"]
+
+
+def jax_farm_server(clients, rng):
+    """The JAX fixtures' merge-tree sequencer (``tests/mergetree_fixtures.py``:
+    the same draws in the same order) keeping every sequenced message in
+    ``log``, as the port's ``testing.farm.FarmServer`` does."""
+    from tests.mergetree_fixtures import FarmServer
+
+    from fluidframework_tpu.protocol import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+
+    class LoggingFarmServer(FarmServer):
+        def __init__(self):
+            super().__init__(clients, rng)
+            self.log = []
+
+        def sequence_one(self) -> bool:
+            ready = [c for c in self.clients if c.outbound]
+            if not ready:
+                return False
+            sender = self.rng.choice(ready)
+            raw = sender.outbound.popleft()
+            self.seq += 1
+            self.client_ref[sender.name] = max(
+                self.client_ref[sender.name], raw["refSeq"])
+            msn = min(self.client_ref.values())
+            msg = SequencedDocumentMessage(
+                client_id=sender.name, sequence_number=self.seq,
+                minimum_sequence_number=msn,
+                client_sequence_number=raw["clientSeq"],
+                reference_sequence_number=raw["refSeq"],
+                type=MessageType.OPERATION, contents=raw["contents"])
+            self.log.append(msg)
+            for c in self.clients:
+                c.client.apply_msg(msg)
+            return True
+
+    return LoggingFarmServer()
+
+
+def farm_msg(m) -> tuple:
+    """A sequenced farm message as plain values: sender, seq, clientSeq,
+    refSeq, msn, type, wire contents."""
+    return (m.client_id, m.sequence_number, m.client_sequence_number,
+            m.reference_sequence_number, m.minimum_sequence_number,
+            m.type.value, m.contents)
+
+
+def segments(client) -> list:
+    """Every segment of a merge-tree client, every stamp included."""
+    return [(s.text, s.marker, dict(s.props), s.ins_seq, s.ins_client,
+             s.ins_local_seq, s.rem_seq, s.rem_client,
+             sorted(s.rem_clients), s.rem_local_seq, dict(s.pending_props))
+            for s in client.tree.segments]
+
+
+def side(pkg: str) -> SimpleNamespace:
+    """One package's side of a service-level parity scenario: its stack
+    (``stack``), a fixed-epoch server at clock 0, a local-driver loader
+    on it, ``mod(name)`` for its modules and ``notes`` for what the
+    scenario shows."""
+    st = stack(pkg)
+    server = st.server()
+    notes: list = []
+    return SimpleNamespace(
+        pkg=pkg, st=st, server=server,
+        loader=st.Loader(st.LocalDocumentServiceFactory(server)),
+        mod=lambda name: module(pkg, name), notes=notes, note=notes.append)
+
+
+def both(scenario, *args) -> None:
+    """Run ``scenario(side(pkg), *args)`` on the JAX package, then on the
+    port, and require equal notes."""
+    notes = {}
+    for pkg in ("jax", "torch"):
+        s = side(pkg)
+        scenario(s, *args)
+        notes[pkg] = s.notes
+    assert notes["torch"] == notes["jax"]
