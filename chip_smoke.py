@@ -717,11 +717,6 @@ def phase_service(name: str, power: str):
            "stage_seconds": app.stage_seconds,
            "stage_bytes": app.stage_bytes,
            "exec_seconds": app.exec_seconds,
-           "exec_device_seconds": app.exec_device_seconds,
-           # a lower bound: a step's event span also counts the host's
-           # gaps between its eager launches (tools/profile_service.py
-           # measures the card's busy time itself)
-           "card_idle_share_min": 1 - app.exec_device_seconds / stats.seconds,
            "stage_overlap_ratio": app.stage_overlap_ratio(),
            "dispatches": app.dispatches, "launches": launches,
            "host_escalations": 0,
@@ -1895,7 +1890,6 @@ def phase_mesh(power: str, device: str = "cuda"):
           "one_doc_waves": one.mesh_waves,
           "stage_seconds": app.mesh_stage_seconds,
           "exec_seconds": app.exec_seconds,
-          "exec_device_seconds": app.exec_device_seconds,
           "state_rows_match_dense": True, "texts_match_cpu": True,
           "async_texts_match": True, "checkpoint_refusal": refusal,
           **memory, **timing,

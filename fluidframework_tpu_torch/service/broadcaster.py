@@ -15,26 +15,79 @@ from collections import defaultdict
 from typing import Callable
 
 from ..protocol.messages import TraceHop
-from ..utils.telemetry import HOP_FANOUT, HOP_SERVICE_ACTION
+from ..utils.telemetry import (
+    HOP_FANOUT,
+    HOP_SERVICE_ACTION,
+    SPANS,
+    span_of,
+    tracing,
+)
 from .core import QueuedMessage
 
 
+#: the span a session's broadcast deliveries run under: callbacks bound
+#: to an object whose class names it as its ``SPAN``
+#: (``ServerConnection._deliver_ops``)
+SESSION = "session"
+SESSION_SPAN = SPANS.name_id(SESSION)
+
+
 class PubSub:
-    """Topic → subscriber callbacks (ref: memory-orderer pubsub.ts)."""
+    """Topic → subscriber callbacks (ref: memory-orderer pubsub.ts).
+
+    While ``tracing()``, the sessions' callbacks of one publish run in
+    one ``session`` span row: its time sums theirs, its calls count
+    them."""
 
     def __init__(self):
         self._subs: dict[str, list[Callable]] = defaultdict(list)
+        # topic → whether each callback in _subs is a session's
+        self._sessions: dict[str, list[bool]] = defaultdict(list)
 
     def subscribe(self, topic: str, cb: Callable) -> None:
         self._subs[topic].append(cb)
+        self._sessions[topic].append(span_of(cb) == SESSION)
 
     def unsubscribe(self, topic: str, cb: Callable) -> None:
-        if cb in self._subs.get(topic, []):
-            self._subs[topic].remove(cb)
+        subs = self._subs.get(topic, [])
+        if cb in subs:
+            del self._sessions[topic][subs.index(cb)]
+            subs.remove(cb)
 
     def publish(self, topic: str, *args) -> None:
+        if tracing():
+            self._publish_traced(topic, args)
+            return
         for cb in list(self._subs.get(topic, [])):
             cb(*args)
+
+    def _publish_traced(self, topic: str, args: tuple) -> None:
+        """``publish`` with the session span running around each
+        session's callback and paused around the others."""
+        frame = None  # this publish's session span
+        running = False  # whether it runs now
+        calls = 0
+        try:
+            for cb, session in list(zip(self._subs.get(topic, []),
+                                        self._sessions.get(topic, []))):
+                if session and not running:
+                    if frame is None:
+                        # None: folded into a running session span
+                        frame = SPANS.begin(SESSION_SPAN)
+                    else:
+                        SPANS.resume(frame)
+                    running = frame is not None
+                elif running and not session:
+                    SPANS.pause(frame)
+                    running = False
+                if running:
+                    calls += 1
+                cb(*args)
+        finally:
+            if running:
+                SPANS.pause(frame)
+            if frame is not None:
+                SPANS.close(frame, calls)
 
 
 class BroadcasterLambda:
@@ -50,6 +103,8 @@ class BroadcasterLambda:
     #: broadcast faults. Class-level because orderers construct their
     #: broadcaster lazily; None = disarmed, one branch per batch.
     fault_plane = None
+    #: the span its log deliveries run under (local_log.handler_span)
+    SPAN = "broadcaster"
 
     def __init__(self, pubsub: PubSub):
         self._pubsub = pubsub

@@ -173,6 +173,9 @@ class DeliCheckpoint:
 class DeliLambda:
     """Sequencer for ONE document (the document-router demuxes per doc)."""
 
+    #: the span its log deliveries run under (local_log.handler_span)
+    SPAN = "deli"
+
     def __init__(
         self,
         tenant_id: str,

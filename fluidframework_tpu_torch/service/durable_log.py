@@ -410,7 +410,7 @@ class DurableLog(OrderedLogBase):
         grew = False
         for topic in self._order:
             n = self._refresh_one(topic)
-            if any(pos[0] < n for _, pos in self._subs.get(topic, ())):
+            if any(pos[0] < n for _, pos, _ in self._subs.get(topic, ())):
                 self._dirty[topic] = None
                 grew = True
         return grew

@@ -80,8 +80,7 @@ import json
 import os
 import threading
 import time
-from collections import deque
-from contextlib import ExitStack
+from contextlib import ExitStack, nullcontext
 from dataclasses import replace
 from typing import Optional, Union
 
@@ -136,11 +135,31 @@ from ..parallel.sharded_apply import (
 )
 from ..protocol.messages import MessageType
 from ..utils.affinity import blocking
+from ..utils.telemetry import SPANS, tracing
 from .scriptorium import channel_stream  # noqa: F401  (torch-free home)
 
 MARKER_GLYPH = "￼"  # arena placeholder byte for markers (flags classify)
 
 INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
+
+# the farm's spans (utils/telemetry.SPANS); profiler scopes name
+# each wave's kernels in a profiler's trace
+INGEST_SPAN = SPANS.name_id("applier.ingest")
+TAKE_SPAN = SPANS.name_id("applier.take")
+STAGE_SPAN = SPANS.name_id("applier.stage")
+EXECUTE_SPAN = SPANS.name_id("applier.execute")
+SYNC_SPAN = SPANS.name_id("applier.sync")
+_NO_SCOPE = nullcontext()
+
+
+def _scope(name: str, on: bool):
+    """A profiler scope named ``name`` while tracing, else nothing. It is
+    a function-scope event: a user annotation (``record_function``) would
+    also lay a range over the stage's kernels on the card's timeline,
+    which a reader of the card's busy time would count as busy."""
+    return (torch._C._profiler._RecordFunctionFast(name) if on
+            else _NO_SCOPE)
+
 
 _TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
                 np.dtype(np.int32): torch.int32}
@@ -294,16 +313,10 @@ class GpuDocumentApplier:
         # the non-blocking "device still executing" probe of the overlap
         # accounting; _drain_device() waits on them at seams
         self._exec_markers: list = []
-        # (start, end) timing events of steps not yet folded into
-        # exec_device_seconds, one pair per device a step
-        self._timed_steps: deque = deque()
         self.stage_seconds = 0.0
         self.stage_overlap_seconds = 0.0
         self.stage_bytes = 0
         self.exec_seconds = 0.0
-        # card time from each step's first enqueued launch to its end
-        # (host gaps between the step's eager launches included)
-        self.exec_device_seconds = 0.0
         self.waves_staged = 0
         self.last_wave_hops: Optional[tuple[float, float]] = None
         self._last_stage_wall: Optional[float] = None
@@ -357,132 +370,144 @@ class GpuDocumentApplier:
         """Stage a broadcast batch of (sequenced message, wire op) pairs of
         one doc, in seq order. Staging is tuple appends; one array per
         batch."""
-        slot = self.slot_of(tenant_id, document_id)
-        if pairs:
-            # sequenced stream ⇒ pairs arrive in seq order; the last is max
-            self._applied_seq[slot] = max(
-                self._applied_seq.get(slot, 0),
-                pairs[-1][0].sequence_number)
-            self._first_seq.setdefault(slot, pairs[0][0].sequence_number)
-            if slot in self._restore_applied:
-                self._post_restore_first.setdefault(
-                    slot, pairs[0][0].sequence_number)
-        if self.fault_plane is not None and slot not in self._host_docs:
-            if self.fault_plane("applier.ingest", slot=slot) \
-                    == "escalate_host":
-                # forced overflow-to-host flip: same path a doc takes
-                # when it outgrows device capacity — replays the
-                # authoritative log into a host replica, then applies
-                # this batch host-side below
-                self._escalate(slot, None, None)
-        if slot in self._host_docs:
-            for msg, wire_op in pairs:
-                self._apply_host(slot, msg, wire_op)
-            return
-        staged = []
-        table = self._client_ids.setdefault(slot, {})
-        arena = self.arenas[slot]
-        # hot-loop locals: plain inserts/removes (the bulk of real
-        # traffic) stage inline without the _stage_op dispatch
-        append = staged.append
-        arena_append = arena.append
-        table_get = table.get
-        for i, (msg, wire_op) in enumerate(pairs):
-            if type(wire_op) is not dict:
-                ok = False
-            else:
-                cid = msg.client_id
-                if cid is None:
-                    client = SYSTEM_CLIENT
-                else:
-                    client = table_get(cid)
-                    if client is None:
-                        client = len(table)
-                        table[cid] = client
-                t = wire_op.get("type")
-                if t == 0 and "marker" not in wire_op \
-                        and not wire_op.get("props"):
-                    text = wire_op.get("text") or ""
-                    append((OP_INSERT, wire_op["pos"], 0,
-                            msg.sequence_number,
-                            msg.reference_sequence_number, client,
-                            len(text), arena_append(text),
-                            msg.minimum_sequence_number, 0, 0, 0))
-                    continue
-                if t == 1:
-                    append((OP_REMOVE, wire_op["start"], wire_op["end"],
-                            msg.sequence_number,
-                            msg.reference_sequence_number, client, 0, 0,
-                            msg.minimum_sequence_number, 0, 0, 0))
-                    continue
-                ok = self._stage_op(
-                    staged, arena, wire_op, msg.sequence_number,
-                    msg.reference_sequence_number, client,
-                    msg.minimum_sequence_number)
-            if not ok:
-                # escalation replays the authoritative log (which already
-                # holds this batch) and discards partial staging
-                self._escalate(slot, msg, wire_op)
-                for msg2, wire_op2 in pairs[i + 1:]:
-                    self._apply_host(slot, msg2, wire_op2)
+        span = SPANS.begin(INGEST_SPAN) if tracing() else None
+        try:
+            slot = self.slot_of(tenant_id, document_id)
+            if pairs:
+                # sequenced stream ⇒ pairs arrive in seq order; the last
+                # is max
+                self._applied_seq[slot] = max(
+                    self._applied_seq.get(slot, 0),
+                    pairs[-1][0].sequence_number)
+                self._first_seq.setdefault(slot, pairs[0][0].sequence_number)
+                if slot in self._restore_applied:
+                    self._post_restore_first.setdefault(
+                        slot, pairs[0][0].sequence_number)
+            if self.fault_plane is not None and slot not in self._host_docs:
+                if self.fault_plane("applier.ingest", slot=slot) \
+                        == "escalate_host":
+                    # forced overflow-to-host flip: same path a doc takes
+                    # when it outgrows device capacity — replays the
+                    # authoritative log into a host replica, then applies
+                    # this batch host-side below
+                    self._escalate(slot, None, None)
+            if slot in self._host_docs:
+                for msg, wire_op in pairs:
+                    self._apply_host(slot, msg, wire_op)
                 return
-        if staged:
-            self._push_chunk(slot, np.asarray(staged, np.int32))
+            staged = []
+            table = self._client_ids.setdefault(slot, {})
+            arena = self.arenas[slot]
+            # hot-loop locals: plain inserts/removes (the bulk of real
+            # traffic) stage inline without the _stage_op dispatch
+            append = staged.append
+            arena_append = arena.append
+            table_get = table.get
+            for i, (msg, wire_op) in enumerate(pairs):
+                if type(wire_op) is not dict:
+                    ok = False
+                else:
+                    cid = msg.client_id
+                    if cid is None:
+                        client = SYSTEM_CLIENT
+                    else:
+                        client = table_get(cid)
+                        if client is None:
+                            client = len(table)
+                            table[cid] = client
+                    t = wire_op.get("type")
+                    if t == 0 and "marker" not in wire_op \
+                            and not wire_op.get("props"):
+                        text = wire_op.get("text") or ""
+                        append((OP_INSERT, wire_op["pos"], 0,
+                                msg.sequence_number,
+                                msg.reference_sequence_number, client,
+                                len(text), arena_append(text),
+                                msg.minimum_sequence_number, 0, 0, 0))
+                        continue
+                    if t == 1:
+                        append((OP_REMOVE, wire_op["start"], wire_op["end"],
+                                msg.sequence_number,
+                                msg.reference_sequence_number, client, 0, 0,
+                                msg.minimum_sequence_number, 0, 0, 0))
+                        continue
+                    ok = self._stage_op(
+                        staged, arena, wire_op, msg.sequence_number,
+                        msg.reference_sequence_number, client,
+                        msg.minimum_sequence_number)
+                if not ok:
+                    # escalation replays the authoritative log (which already
+                    # holds this batch) and discards partial staging
+                    self._escalate(slot, msg, wire_op)
+                    for msg2, wire_op2 in pairs[i + 1:]:
+                        self._apply_host(slot, msg2, wire_op2)
+                    return
+            if staged:
+                self._push_chunk(slot, np.asarray(staged, np.int32))
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def ingest_array_batch(self, tenant_id: str, document_id: str,
                            batch) -> None:
         """Stage a SequencedArrayBatch (``service/array_batch.py``) as ONE
         vectorised chunk: no per-op dicts, tuples or message objects.
         Annotates with other than one prop key take the per-op path."""
-        slot = self.slot_of(tenant_id, document_id)
-        box = batch.boxcar
-        n = box.n
-        if n == 0:
-            return
-        self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
-                                      batch.base_seq + n - 1)
-        self._first_seq.setdefault(slot, batch.base_seq)
-        if slot in self._restore_applied:
-            self._post_restore_first.setdefault(slot, batch.base_seq)
+        span = SPANS.begin(INGEST_SPAN) if tracing() else None
+        try:
+            slot = self.slot_of(tenant_id, document_id)
+            box = batch.boxcar
+            n = box.n
+            if n == 0:
+                return
+            self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
+                                          batch.base_seq + n - 1)
+            self._first_seq.setdefault(slot, batch.base_seq)
+            if slot in self._restore_applied:
+                self._post_restore_first.setdefault(slot, batch.base_seq)
 
-        def pairs():
-            return [(batch.message(i), box.wire_op(i)) for i in range(n)]
+            def pairs():
+                return [(batch.message(i), box.wire_op(i)) for i in range(n)]
 
-        if slot in self._host_docs:
-            for msg, wire_op in pairs():
-                self._apply_host(slot, msg, wire_op)
-            return
-        kind = np.asarray(box.kind)
-        ann_idx = np.nonzero(kind == 2)[0]  # wire kind 2 = annotate
-        if len(ann_idx) and (
-                box.props is None
-                or any(len(box.props[int(i)] or {}) != 1 for i in ann_idx)):
-            self.ingest_batch(tenant_id, document_id, pairs())
-            return
-        table = self._client_ids.setdefault(slot, {})
-        client = table.get(box.client_id)
-        if client is None:
-            client = len(table)
-            table[box.client_id] = client
-        chunk = np.zeros((n, OP_FIELDS), np.int32)
-        # wire kinds (0 ins, 1 rem, 2 ann) → device op codes (1, 2, 3)
-        chunk[:, F_TYPE] = kind.astype(np.int32) + 1
-        chunk[:, F_POS] = box.a
-        chunk[:, F_END] = box.b
-        chunk[:, F_SEQ] = batch.base_seq + np.arange(n, dtype=np.int64)
-        chunk[:, F_REFSEQ] = box.rseq
-        chunk[:, F_CLIENT] = client
-        chunk[:, F_MSN] = batch.msns
-        arena_start = self.arenas[slot].append(box.text)
-        text_off = np.asarray(box.text_off)
-        chunk[:, F_TLEN] = np.diff(text_off)
-        chunk[:, F_TSTART] = arena_start + text_off[:-1]
-        for i in ann_idx:
-            (k, v), = box.props[int(i)].items()
-            chunk[i, F_KEY] = self.prop_table.intern_key(k)
-            chunk[i, F_VAL] = (NO_VAL if v is None
-                               else self.prop_table.intern_val(v))
-        self._push_chunk(slot, chunk)
+            if slot in self._host_docs:
+                for msg, wire_op in pairs():
+                    self._apply_host(slot, msg, wire_op)
+                return
+            kind = np.asarray(box.kind)
+            ann_idx = np.nonzero(kind == 2)[0]  # wire kind 2 = annotate
+            if len(ann_idx) and (
+                    box.props is None
+                    or any(len(box.props[int(i)] or {}) != 1
+                           for i in ann_idx)):
+                self.ingest_batch(tenant_id, document_id, pairs())
+                return
+            table = self._client_ids.setdefault(slot, {})
+            client = table.get(box.client_id)
+            if client is None:
+                client = len(table)
+                table[box.client_id] = client
+            chunk = np.zeros((n, OP_FIELDS), np.int32)
+            # wire kinds (0 ins, 1 rem, 2 ann) → device op codes (1, 2, 3)
+            chunk[:, F_TYPE] = kind.astype(np.int32) + 1
+            chunk[:, F_POS] = box.a
+            chunk[:, F_END] = box.b
+            chunk[:, F_SEQ] = batch.base_seq + np.arange(n, dtype=np.int64)
+            chunk[:, F_REFSEQ] = box.rseq
+            chunk[:, F_CLIENT] = client
+            chunk[:, F_MSN] = batch.msns
+            arena_start = self.arenas[slot].append(box.text)
+            text_off = np.asarray(box.text_off)
+            chunk[:, F_TLEN] = np.diff(text_off)
+            chunk[:, F_TSTART] = arena_start + text_off[:-1]
+            for i in ann_idx:
+                (k, v), = box.props[int(i)].items()
+                chunk[i, F_KEY] = self.prop_table.intern_key(k)
+                chunk[i, F_VAL] = (NO_VAL if v is None
+                                   else self.prop_table.intern_val(v))
+            self._push_chunk(slot, chunk)
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def _push_chunk(self, slot: int, chunk: np.ndarray) -> None:
         """Append a staged [n, OP_FIELDS] chunk (the ONLY staging-count
@@ -601,12 +626,10 @@ class GpuDocumentApplier:
                 if slot not in self._host_docs:
                     self._escalate(slot, None, None)
             self._drain_device()
-            self._fold_step_times()
             self._check_overflow()
             return
         self._flush_sync()
         self._drain_device()
-        self._fold_step_times()
         if self._dispatches_since_check:
             self._check_overflow()
 
@@ -628,7 +651,6 @@ class GpuDocumentApplier:
             self._dispatches_since_check = max(self._dispatches_since_check,
                                                1)
         self._drain_device()
-        self._fold_step_times()
         err, self._worker_error = self._worker_error, None
         if err is not None:
             raise err
@@ -647,36 +669,45 @@ class GpuDocumentApplier:
         """Pop up to K staged op ROWS per doc (caller holds the lock, or
         is the only thread). Returns [(slot, chunk_list, row_count)] or
         None when nothing is staged; a chunk that does not fit is split by
-        a view, keeping order."""
+        a view, keeping order. While tracing, a wave takes a request id
+        here, which its stage, execute and card waits carry."""
         if not self._staged:
             return None
-        parts = []
-        drained = []
-        K = self.K
-        for slot, chunks in self._staged.items():
-            take, rest, count = [], None, 0
-            for ci, ch in enumerate(chunks):
-                if count + len(ch) <= K:
-                    take.append(ch)
-                    count += len(ch)
-                    continue
-                room = K - count
-                if room > 0:
-                    take.append(ch[:room])
-                    count = K
-                    rest = [ch[room:]] + chunks[ci + 1:]
+        span = None
+        if tracing():
+            SPANS.new_request()
+            span = SPANS.begin(TAKE_SPAN)
+        try:
+            parts = []
+            drained = []
+            K = self.K
+            for slot, chunks in self._staged.items():
+                take, rest, count = [], None, 0
+                for ci, ch in enumerate(chunks):
+                    if count + len(ch) <= K:
+                        take.append(ch)
+                        count += len(ch)
+                        continue
+                    room = K - count
+                    if room > 0:
+                        take.append(ch[:room])
+                        count = K
+                        rest = [ch[room:]] + chunks[ci + 1:]
+                    else:
+                        rest = chunks[ci:]
+                    break
+                parts.append((slot, take, count))
+                self._staged_ops -= count
+                if rest is None:
+                    drained.append(slot)
                 else:
-                    rest = chunks[ci:]
-                break
-            parts.append((slot, take, count))
-            self._staged_ops -= count
-            if rest is None:
-                drained.append(slot)
-            else:
-                self._staged[slot] = rest
-        for slot in drained:
-            del self._staged[slot]
-        return parts
+                    self._staged[slot] = rest
+            for slot in drained:
+                del self._staged[slot]
+            return parts
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def _dispatch_wave(self, parts) -> int:
         """Stage then execute one wave (the caller has the applier's
@@ -761,9 +792,14 @@ class GpuDocumentApplier:
 
     def _overflow_flags(self) -> np.ndarray:
         """Every row's overflow flag (a device→host sync per device)."""
-        with self._on_streams():
-            return np.concatenate([s.overflow.cpu().numpy()
-                                   for s in self._shards])
+        span = SPANS.begin(SYNC_SPAN) if tracing() else None
+        try:
+            with self._on_streams():
+                return np.concatenate([s.overflow.cpu().numpy()
+                                       for s in self._shards])
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     @blocking("event.synchronize() on the step that last consumed the "
               "target staging set — the rotation fence")
@@ -777,8 +813,13 @@ class GpuDocumentApplier:
         self._stage_flip ^= 1
         pending = self._stage_inflight[self._stage_flip]
         if pending is not None:
-            for event in pending:
-                event.synchronize()
+            span = SPANS.begin(SYNC_SPAN) if tracing() else None
+            try:
+                for event in pending:
+                    event.synchronize()
+            finally:
+                if span is not None:
+                    SPANS.end(span)
             self._stage_inflight[self._stage_flip] = None
 
     def _stage_buffer(self, shape: tuple, dtype) -> tuple:
@@ -802,29 +843,68 @@ class GpuDocumentApplier:
         """Wait for the last enqueued step on every device. Escalation,
         force_wide and close must never act on a farm with a wave still
         executing."""
-        for event in self._exec_markers:
-            event.synchronize()
-
-    def _fold_step_times(self) -> None:
-        """Add completed steps' card times to exec_device_seconds. Runs
-        only on the dispatching thread, or with the worker idle."""
-        steps = self._timed_steps
-        while steps and steps[0][1].query():
-            start, end = steps.popleft()
-            self.exec_device_seconds += start.elapsed_time(end) / 1e3
+        span = SPANS.begin(SYNC_SPAN) if tracing() else None
+        try:
+            for event in self._exec_markers:
+                event.synchronize()
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def _stage_wave(self, parts) -> Optional[_StagedWave]:
         """The HOST half of a dispatch: concat chunks → pack_wave_rows →
         scatter into the rotating pinned buffers → asynchronous copy on
         the applier's stream. No compute is enqueued. In mesh mode the
         scatter targets compact per-shard buffers for ACTIVE shards only
-        (``_stage_wave_mesh``), never an O(max_docs) host array."""
+        (``_stage_wave_mesh``), never an O(max_docs) host array. One
+        interval feeds ``stage_seconds`` and the ``applier.stage`` span."""
         if parts is None:
             return None
         t0 = time.perf_counter()
         parts = [p for p in parts if p[2]]  # interval-only batches: no rows
         if not parts:
             return None
+        span = SPANS.begin(STAGE_SPAN, t0) if tracing() else None
+        try:
+            staged = self._stage_rows(parts)
+        finally:
+            t1 = time.perf_counter()
+            if span is not None:
+                SPANS.end(span, t1)
+        dt = t1 - t0
+        if span is not None:
+            # wave fill: op rows against the [D, K] rows a wave ships
+            SPANS.count("applier.wave.rows", staged.n)
+            SPANS.count("applier.wave.slots", self.max_docs * self.K)
+        # overlap accounting: this stage half counts as HIDDEN time when
+        # the previous step is still executing (query() is non-blocking,
+        # so the measurement never perturbs the pipeline it measures)
+        overlapped = any(not e.query() for e in self._exec_markers)
+        self.waves_staged += 1
+        self.stage_seconds += dt
+        self.stage_bytes += staged.nbytes
+        if overlapped:
+            self.stage_overlap_seconds += dt
+        if self._mesh is not None:
+            self.mesh_stage_seconds += dt
+        reg = self._metrics()
+        reg.inc("applier.stage.seconds", dt, lane=staged.lane)
+        reg.inc("applier.stage.bytes", staged.nbytes, lane=staged.lane)
+        reg.set_gauge("applier.stage.overlap_ratio",
+                      self.stage_overlap_ratio(), lane=staged.lane)
+        # applier/stage hop: wall-clock stamp at stage completion —
+        # _execute_wave closes the stage→execute leg
+        self._last_stage_wall = time.time()
+        if self.fault_plane is not None:
+            # chaos seam: wave N+1 staged (popped from the staging dict,
+            # copies enqueued) but NOT yet executed — a crash here must
+            # lose nothing: restore replays it from the log
+            self.fault_plane("applier.stage.staged", ops=staged.n)
+        return staged
+
+    def _stage_rows(self, parts) -> _StagedWave:
+        """Pack the wave's rows, scatter them into the next staging set
+        and enqueue their copies to the card."""
         chunks = [ch for _slot, take, _n in parts for ch in take]
         flat = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
         n = len(flat)
@@ -871,31 +951,6 @@ class GpuDocumentApplier:
             staged = _StagedWave(
                 "dense", True, (wide.to(self.device, non_blocking=True),),
                 n, wide_np.nbytes, self._stage_flip)
-        dt = time.perf_counter() - t0
-        # overlap accounting: this stage half counts as HIDDEN time when
-        # the previous step is still executing (query() is non-blocking,
-        # so the measurement never perturbs the pipeline it measures)
-        overlapped = any(not e.query() for e in self._exec_markers)
-        self.waves_staged += 1
-        self.stage_seconds += dt
-        self.stage_bytes += staged.nbytes
-        if overlapped:
-            self.stage_overlap_seconds += dt
-        if self._mesh is not None:
-            self.mesh_stage_seconds += dt
-        reg = self._metrics()
-        reg.inc("applier.stage.seconds", dt, lane=staged.lane)
-        reg.inc("applier.stage.bytes", staged.nbytes, lane=staged.lane)
-        reg.set_gauge("applier.stage.overlap_ratio",
-                      self.stage_overlap_ratio(), lane=staged.lane)
-        # applier/stage hop: wall-clock stamp at stage completion —
-        # _execute_wave closes the stage→execute leg
-        self._last_stage_wall = time.time()
-        if self.fault_plane is not None:
-            # chaos seam: wave N+1 staged (popped from the staging dict,
-            # copies enqueued) but NOT yet executed — a crash here must
-            # lose nothing: restore replays it from the log
-            self.fault_plane("applier.stage.staged", ops=n)
         return staged
 
     def _stage_wave_mesh(self, flat, packed, doc_idx, pos_idx, slots_a,
@@ -972,40 +1027,20 @@ class GpuDocumentApplier:
         (current on the calling thread) behind the wave's copies, and
         record one completion event per device. With overlap on nothing
         waits; with it off the step is fenced before returning (the
-        serialized behavior, kept for A/B)."""
+        serialized behavior, kept for A/B). One interval feeds
+        ``exec_seconds`` and the ``applier.execute`` span; while tracing,
+        profiler scopes name the step's stages (unpack, apply, compact)."""
         t0 = time.perf_counter()
-        starts = {}
-        for device, stream in self._streams.items():
-            starts[device] = torch.cuda.Event(enable_timing=True)
-            starts[device].record(stream)
-        if staged.wide:
-            self.wide_dispatches += 1
-        if staged.lane == "mesh":
-            packed_fn, wide_fn = self._sharded_step
-            fn = wide_fn if staged.wide else packed_fn
-            self._shards, _stats = fn(self._shards, *staged.arrays)
-        else:
-            wave = (staged.arrays[0] if staged.wide
-                    else unpack_wave16(*staged.arrays))
-            state = cuda_apply.apply_ops_batch(self._shards[0], wave)
-            self._shards = [compact_batch(state, wave_min_seq(wave))]
-        if starts:
-            ends = []
-            for device, stream in self._streams.items():
-                end = torch.cuda.Event(enable_timing=True)
-                end.record(stream)
-                ends.append(end)
-                self._timed_steps.append((starts[device], end))
-            self._exec_markers = ends
-            # the wave's staging set may be refilled only after this
-            # step (and so its copies) completes: _rotate_stage_buffers
-            # fences on it
-            self._stage_inflight[staged.flip] = ends
-            if not self._overlap:
-                for end in ends:
-                    end.synchronize()
-            self._fold_step_times()
-        dt = time.perf_counter() - t0
+        span = SPANS.begin(EXECUTE_SPAN, t0) if tracing() else None
+        on = span is not None
+        try:
+            with _scope("applier.execute", on):
+                self._enqueue_step(staged, on)
+        finally:
+            t1 = time.perf_counter()
+            if span is not None:
+                SPANS.end(span, t1)
+        dt = t1 - t0
         self.exec_seconds += dt
         reg = self._metrics()
         reg.inc("applier.exec.seconds", dt, lane=staged.lane)
@@ -1027,6 +1062,43 @@ class GpuDocumentApplier:
             # wave is not yet staged — the other overlap-window order
             self.fault_plane("applier.stage.inflight", ops=staged.n)
         return staged.n
+
+    def _enqueue_step(self, staged: _StagedWave, traced: bool) -> None:
+        """Enqueue the wave's step and its completion events (a plain
+        marker per device); fence them at once with overlap off."""
+        if staged.wide:
+            self.wide_dispatches += 1
+        if staged.lane == "mesh":
+            packed_fn, wide_fn = self._sharded_step
+            fn = wide_fn if staged.wide else packed_fn
+            self._shards, _stats = fn(self._shards, *staged.arrays)
+        else:
+            with _scope("applier.unpack", traced):
+                wave = (staged.arrays[0] if staged.wide
+                        else unpack_wave16(*staged.arrays))
+            with _scope("applier.apply", traced):
+                state = cuda_apply.apply_ops_batch(self._shards[0], wave)
+            with _scope("applier.compact", traced):
+                self._shards = [compact_batch(state, wave_min_seq(wave))]
+        if self._streams:
+            ends = []
+            for stream in self._streams.values():
+                end = torch.cuda.Event()
+                end.record(stream)
+                ends.append(end)
+            self._exec_markers = ends
+            # the wave's staging set may be refilled only after this
+            # step (and so its copies) completes: _rotate_stage_buffers
+            # fences on it
+            self._stage_inflight[staged.flip] = ends
+            if not self._overlap:
+                span = SPANS.begin(SYNC_SPAN) if traced else None
+                try:
+                    for end in ends:
+                        end.synchronize()
+                finally:
+                    if span is not None:
+                        SPANS.end(span)
 
     def stage_overlap_ratio(self) -> float:
         """staged-while-executing seconds / total stage seconds."""

@@ -18,11 +18,20 @@ native C++ op log.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
+from ..utils.telemetry import SPANS, span_of, tracing
 from .core import QueuedMessage
 
 Handler = Callable[[QueuedMessage], None]
+
+
+def handler_span(handler: Handler) -> Optional[int]:
+    """The span id a subscriber's deliveries run under: its object's
+    ``SPAN`` (deli, scriptorium, scribe, broadcaster), else None: the
+    subscriber runs without a span."""
+    name = span_of(handler)
+    return None if name is None else SPANS.name_id(name)
 
 
 class OrderedLogBase:
@@ -32,7 +41,9 @@ class OrderedLogBase:
     fault_plane = None
 
     def __init__(self):
-        self._subs: dict[str, list[tuple[Handler, list[int]]]] = {}
+        # topic → [(handler, [position], span id or None)]
+        self._subs: dict[str, list[tuple[Handler, list[int],
+                                         Optional[int]]]] = {}
         self._order: list[str] = []
         # topics that MAY have undelivered records (ordered set): drain is
         # O(pending work), not O(topics) — at thousands of docs the
@@ -96,19 +107,20 @@ class OrderedLogBase:
         """Move every subscriber position on ``topic`` back ``n``
         records: the next drain redelivers them (the at-least-once
         delivery mode every consumer must already tolerate)."""
-        for _, pos in self._subs.get(topic, ()):
+        for _, pos, _ in self._subs.get(topic, ()):
             pos[0] = max(0, pos[0] - n)
         if self._subs.get(topic):
             self._dirty[topic] = None
 
     def subscribe(self, topic: str, handler: Handler, from_offset: int = 0) -> None:
         self.create_topic(topic)
-        self._subs[topic].append((handler, [from_offset]))
+        self._subs[topic].append(
+            (handler, [from_offset], handler_span(handler)))
         self._dirty[topic] = None  # may need catch-up delivery
 
     def unsubscribe(self, topic: str, handler: Handler) -> None:
         subs = self._subs.get(topic, [])
-        self._subs[topic] = [(h, p) for h, p in subs if h is not handler]
+        self._subs[topic] = [sub for sub in subs if sub[0] is not handler]
 
     def length(self, topic: str) -> int:
         return self._stored_length(topic)
@@ -130,7 +142,10 @@ class OrderedLogBase:
 
         Handlers may append more messages (deli → deltas topic); the loop
         runs to a fixed point. Returns the number of deliveries made.
+        While ``tracing()``, each delivery to a subscriber that names a
+        span runs in it.
         """
+        traced = tracing()
         delivered = 0
         while self._dirty:
             topic = next(iter(self._dirty))
@@ -138,7 +153,9 @@ class OrderedLogBase:
             # handlers may subscribe/unsubscribe and append (re-dirtying
             # this or other topics); the outer loop reaches the fixed point
             try:
-                for handler, pos in list(self._subs.get(topic, [])):
+                for handler, pos, span in list(self._subs.get(topic, [])):
+                    if not traced:
+                        span = None
                     # snapshot the length once per handler pass: for the
                     # durable log it is a ctypes call, and re-querying
                     # per record made it ~4 calls/record on the hot
@@ -151,7 +168,15 @@ class OrderedLogBase:
                             offset=pos[0], topic=topic, partition=0,
                             value=self._load(topic, pos[0]))
                         pos[0] += 1
-                        handler(msg)
+                        if span is None:
+                            handler(msg)
+                        else:
+                            frame = SPANS.begin(span)
+                            try:
+                                handler(msg)
+                            finally:
+                                if frame is not None:
+                                    SPANS.end(frame)
                         delivered += 1
             except Exception:
                 # a raising handler must not strand the topic's remaining
@@ -166,12 +191,19 @@ class OrderedLogBase:
         tests. Returns False when the topic is fully drained."""
         n = self._stored_length(topic)
         any_delivered = False
-        for handler, pos in self._subs.get(topic, []):
+        traced = tracing()
+        for handler, pos, span in self._subs.get(topic, []):
             if pos[0] < n:
                 msg = QueuedMessage(offset=pos[0], topic=topic, partition=0,
                                     value=self._load(topic, pos[0]))
                 pos[0] += 1
-                handler(msg)
+                frame = SPANS.begin(span) if traced and span is not None \
+                    else None
+                try:
+                    handler(msg)
+                finally:
+                    if frame is not None:
+                        SPANS.end(frame)
                 any_delivered = True
         return any_delivered
 

@@ -45,6 +45,7 @@ from ..protocol.messages import (
     Signal,
 )
 from ..utils import TelemetryLogger
+from ..utils.telemetry import SPANS, tracing
 from .blob_store import DbBlobStore, NativeBlobStore
 from .broadcaster import BroadcasterLambda, PubSub
 from .core import InMemoryDb, summary_versions_collection
@@ -52,6 +53,11 @@ from .deli import RawBoxcar, RawMessage
 from .local_log import LocalLog
 from .local_orderer import LocalOrderer
 from .scriptorium import LogTruncatedError
+
+#: a submit's whole call: ordering, and the synchronous drain through
+#: deli, the store, the broadcast and its subscribers; each boxcar takes
+#: a request id here
+SUBMIT_SPAN = SPANS.name_id("server.submit")
 
 
 class ServerConnection:
@@ -65,6 +71,9 @@ class ServerConnection:
     attach, so nothing delivered between the handshake and handler
     registration is lost.
     """
+
+    #: the span its broadcast deliveries run under (PubSub)
+    SPAN = "session"
 
     def __init__(self, server: "LocalServer", tenant_id: str, document_id: str,
                  client_id: str, details: Any):
@@ -569,56 +578,67 @@ class LocalServer:
                 "docs_pending": pending}
 
     def _submit(self, conn: ServerConnection, messages: list[DocumentMessage]) -> None:
-        self._check_revoked()
-        if not getattr(conn, "can_write", True):
-            from ..protocol.messages import Nack, NackErrorType
+        span = SPANS.begin(SUBMIT_SPAN, request=True) if tracing() else None
+        try:
+            self._check_revoked()
+            if not getattr(conn, "can_write", True):
+                from ..protocol.messages import Nack, NackErrorType
 
-            for op in messages:
+                for op in messages:
+                    self.pubsub.publish(
+                        f"nack/{conn.tenant_id}/{conn.document_id}/"
+                        f"{conn.client_id}",
+                        Nack(operation=op, sequence_number=-1, code=403,
+                             type=NackErrorType.INVALID_SCOPE,
+                             message="token lacks doc:write scope"))
+                return
+            orderer = self._get_orderer(conn.tenant_id, conn.document_id)
+            now = self._clock()
+            self._flight.event("deli", "boxcar", doc=conn.document_id,
+                               client=conn.client_id, n=len(messages))
+            # the whole submitted batch rides the raw log as ONE boxcar
+            # record (ref: IBoxcarMessage); deli's fast lane tickets it in
+            # one pass
+            orderer.order(
+                RawBoxcar(
+                    tenant_id=conn.tenant_id,
+                    document_id=conn.document_id,
+                    client_id=conn.client_id,
+                    ops=messages,
+                    timestamp=now,
+                )
+            )
+            self._maybe_drain()
+        finally:
+            if span is not None:
+                SPANS.end(span)
+
+    def _submit_array(self, conn: ServerConnection, boxcar) -> None:
+        span = SPANS.begin(SUBMIT_SPAN, request=True) if tracing() else None
+        try:
+            self._check_revoked()
+            if not getattr(conn, "can_write", True):
+                from ..protocol.messages import Nack, NackErrorType
+
                 self.pubsub.publish(
                     f"nack/{conn.tenant_id}/{conn.document_id}/"
                     f"{conn.client_id}",
-                    Nack(operation=op, sequence_number=-1, code=403,
+                    Nack(operation=None, sequence_number=-1, code=403,
                          type=NackErrorType.INVALID_SCOPE,
                          message="token lacks doc:write scope"))
-            return
-        orderer = self._get_orderer(conn.tenant_id, conn.document_id)
-        now = self._clock()
-        self._flight.event("deli", "boxcar", doc=conn.document_id,
-                           client=conn.client_id, n=len(messages))
-        # the whole submitted batch rides the raw log as ONE boxcar record
-        # (ref: IBoxcarMessage); deli's fast lane tickets it in one pass
-        orderer.order(
-            RawBoxcar(
-                tenant_id=conn.tenant_id,
-                document_id=conn.document_id,
-                client_id=conn.client_id,
-                ops=messages,
-                timestamp=now,
-            )
-        )
-        self._maybe_drain()
-
-    def _submit_array(self, conn: ServerConnection, boxcar) -> None:
-        self._check_revoked()
-        if not getattr(conn, "can_write", True):
-            from ..protocol.messages import Nack, NackErrorType
-
-            self.pubsub.publish(
-                f"nack/{conn.tenant_id}/{conn.document_id}/"
-                f"{conn.client_id}",
-                Nack(operation=None, sequence_number=-1, code=403,
-                     type=NackErrorType.INVALID_SCOPE,
-                     message="token lacks doc:write scope"))
-            return
-        boxcar.tenant_id = conn.tenant_id
-        boxcar.document_id = conn.document_id
-        boxcar.client_id = conn.client_id
-        boxcar.timestamp = self._clock()
-        self._flight.event("deli", "aboxcar", doc=conn.document_id,
-                           client=conn.client_id, n=boxcar.n)
-        orderer = self._get_orderer(conn.tenant_id, conn.document_id)
-        orderer.order(boxcar)
-        self._maybe_drain()
+                return
+            boxcar.tenant_id = conn.tenant_id
+            boxcar.document_id = conn.document_id
+            boxcar.client_id = conn.client_id
+            boxcar.timestamp = self._clock()
+            self._flight.event("deli", "aboxcar", doc=conn.document_id,
+                               client=conn.client_id, n=boxcar.n)
+            orderer = self._get_orderer(conn.tenant_id, conn.document_id)
+            orderer.order(boxcar)
+            self._maybe_drain()
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def _signal(self, conn: ServerConnection, signal: Signal) -> None:
         self.pubsub.publish(

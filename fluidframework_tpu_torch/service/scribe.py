@@ -35,6 +35,9 @@ SCRIBE_CHECKPOINT_COLLECTION = "scribe-checkpoints"
 
 
 class ScribeLambda:
+    #: the span its log deliveries run under (local_log.handler_span)
+    SPAN = "scribe"
+
     def __init__(
         self,
         tenant_id: str,

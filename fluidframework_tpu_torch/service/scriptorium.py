@@ -47,6 +47,9 @@ class ScriptoriumLambda:
     retained window must reload from the summary, the same contract as
     the reference's deli ClearCache + summary-based catch-up."""
 
+    #: the span its log deliveries run under (local_log.handler_span)
+    SPAN = "scriptorium"
+
     def __init__(self, db: InMemoryDb):
         self._db = db
 

@@ -1,7 +1,7 @@
 """Where the service path's time goes on one card: a torch.profiler trace.
 
     python3 -m fluidframework_tpu_torch.tools.profile_service \
-        [--switch-interval SECONDS]
+        [--switch-interval SECONDS] [--spans PATH]
 
 Runs ``service/load_gen.run_inproc`` at ``chip_smoke.py``'s service
 geometry (1024 docs × 2 clients × 48 ops, boxcars of 24, array lane, the
@@ -9,8 +9,11 @@ async applier with ``min_wave_ops=32768``) once to warm up and once under
 ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line: the
 run's wall seconds, the card's busy time (the union of every kernel and
 copy interval the profiler saw on the card) and idle share, the device
-time of the 12 costliest kernels, and the applier's stage/execute split;
-then the card's name and power limit. ``--switch-interval`` sets the
+time of the 12 costliest kernels, the applier's stage/execute split and
+the program's span totals (``utils/telemetry.SPANS``, which records while
+the profiler runs); then the card's name and power limit. The spans go to
+``--spans`` as a Chrome trace on ``perf_counter``, to open beside the
+profiler's own. ``--switch-interval`` sets the
 interpreter's thread switch interval first (``sys.setswitchinterval``),
 to show whether the worker's wall time moves with how often the GIL
 changes hands. Fails when the profiler sees no device activity.
@@ -30,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..ops import cuda_apply
 from ..service.gpu_applier import GpuDocumentApplier
 from ..service.load_gen import run_inproc
+from ..utils.telemetry import SPANS
 
 RUN = dict(n_docs=1024, clients_per_doc=2, ops_per_client=48, batch_size=24,
            flush_every=4096, seed=3, array_lane=True)
@@ -69,6 +73,8 @@ def run_once(**applier):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--switch-interval", type=float)
+    ap.add_argument("--spans", default="profile_service_spans.json",
+                    help="where the program's spans go (Chrome trace)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_service: no CUDA device")
@@ -82,6 +88,7 @@ def main() -> None:
     cuda_apply.build()
     run_once()  # warm-up: context, kernel library, pinned buffers
     torch.cuda.synchronize()
+    SPANS.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -105,8 +112,10 @@ def main() -> None:
                        for k, ms, n in kernels[:12]],
         "dispatches": app.dispatches, "stage_seconds": app.stage_seconds,
         "exec_seconds": app.exec_seconds,
-        "exec_device_seconds": app.exec_device_seconds,
         "stage_overlap_ratio": app.stage_overlap_ratio(),
+        "spans": SPANS.snapshot()["spans"],
+        "spans_trace": args.spans,
+        "spans_written": SPANS.export_chrome_trace(args.spans),
         "switch_interval": sys.getswitchinterval(), "card": card}),
         flush=True)
     print(card, flush=True)

@@ -12,11 +12,22 @@ wire-level trace hops consumed for per-hop latency
 Sinks are plain callables (no transport baked in), and the trace
 consumer (``TraceAggregator``) turns the hops deli already stamps into the
 per-hop latency breakdown the socket load reports.
+
+``SPANS`` is the process's span recorder: host spans at the layer
+boundaries inside one process (deli, the store, the fan-out, the replica
+farm's waves), on ``time.perf_counter``, kept in memory while
+``tracing()`` is true and free when it is not.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
+import os
 import random
+import struct
+import sys
+import threading
 import time
 from collections import defaultdict
 from typing import Any, Callable, Optional
@@ -308,3 +319,291 @@ class TraceAggregator:
         if self.unknown_hops:
             out["unknown_hops"] = {"count": self.unknown_hops}
         return out
+
+
+# ------------------------------------------------------------------ spans
+#
+# The in-process span recorder. A site costs one call of ``tracing()``
+# while it is off: no clock read, no allocation, no ``record_function``.
+# It is on while a ``torch.profiler`` session runs (the profiler keeps
+# ``torch.autograd.profiler._is_profiler_enabled`` for exactly this
+# check), so a profiled window gets the program's spans with no switch of
+# its own. Spans share ``time.perf_counter`` with the callers' own host
+# timers.
+
+
+class _ProfilerUnbound:
+    """Stands in for ``torch.autograd.profiler`` until torch is imported:
+    no profiler can run before, and the first check after binds the real
+    module, so later checks are one attribute load."""
+
+    @property
+    def _is_profiler_enabled(self) -> bool:
+        global _profiler
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None or not hasattr(mod, "_is_profiler_enabled"):
+            return False
+        _profiler = mod
+        return mod._is_profiler_enabled
+
+
+_profiler = _ProfilerUnbound()
+
+
+def tracing() -> bool:
+    """Whether span sites record: a ``torch.profiler`` session is
+    active."""
+    return _profiler._is_profiler_enabled
+
+
+def span_of(callback: Callable) -> Optional[str]:
+    """The span a callback's deliveries run under: the ``SPAN`` class
+    attribute of a bound method's object, else None (no span)."""
+    return getattr(type(getattr(callback, "__self__", None)), "SPAN", None)
+
+
+# An open span is a list (cheaper to make than an object), indexed so
+# (_STATE: its thread's _ThreadState):
+(_NAME, _ID, _PARENT, _START, _RESUMED, _BUSY, _CHILD, _REQUEST, _PREV,
+ _STATE) = range(10)
+# A kept row is five ints (id, parent id or 0, name id, request id,
+# calls) and two floats (start, start + busy time), packed into one
+# per-thread bytearray: one C call a row, 56 bytes.
+_ROW = struct.Struct("=5q2d")
+_ROW_FIELDS = ("id", "parent", "name", "request", "calls", "start", "end")
+
+
+class _ThreadState:
+    """One thread's open spans, current request id, totals and kept rows
+    (a plain object: an attribute of a ``threading.local`` subclass
+    costs several times more to read). Only its thread writes it, so the
+    totals need no lock."""
+
+    __slots__ = ("stack", "request", "totals", "rows", "dropped")
+
+    def __init__(self, names: int):
+        self.stack: list = []
+        self.request = 0
+        # name id → [seconds, self seconds, calls]
+        self.totals = [[0.0, 0.0, 0] for _ in range(names)]
+        self.rows = bytearray()
+        self.dropped = 0
+
+
+class SpanRecorder:
+    """Host spans by name, with their parent span and request id.
+
+    A span is ``begin``/``end`` around the work (``end`` in a
+    ``finally``). A span may be paused and resumed instead (the sessions
+    of one broadcast share one row): ``close`` books it with the calls
+    it stands for, its busy time being the sum of its running
+    stretches.
+
+    Totals per name (seconds; self seconds, less the time of its child
+    spans; calls) and the plain counters of ``count`` are read by
+    ``snapshot()``. Each span is also kept as a
+    packed row in a bounded per-thread buffer, no lock on the way; past
+    ``capacity`` rows only the totals go on and ``dropped`` counts the
+    rest.
+
+    A request id is a process counter: ``begin(..., request=True)`` takes
+    a new one for the span and everything it causes, ``new_request()``
+    one for what the thread does next (a wave). Spans inherit the
+    thread's current id. A span begun directly inside one of the same
+    name is folded into it (``begin`` returns None).
+    """
+
+    def __init__(self, capacity: int = 1 << 20):
+        self.capacity = capacity
+        self._counts: dict = defaultdict(float)
+        self._names: list = []
+        self._ids: dict = {}
+        self._threads: list = []  # (native id, _ThreadState) a thread
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.reset()
+
+    def _state(self) -> _ThreadState:
+        """This thread's state, made at its first span."""
+        try:
+            return self._local.state
+        except AttributeError:
+            with self._lock:
+                ts = self._local.state = _ThreadState(len(self._names))
+                self._threads.append((threading.get_native_id(), ts))
+            return ts
+
+    def reset(self) -> None:
+        """Forget every span and total (names stay registered)."""
+        with self._lock:
+            self._span_ids = itertools.count(1)
+            self._requests = itertools.count(1)
+            self._row_numbers = itertools.count()
+            for _tid, ts in self._threads:
+                del ts.rows[:]
+                ts.dropped = 0
+                for total in ts.totals:
+                    total[:] = (0.0, 0.0, 0)
+            self._counts.clear()
+
+    @property
+    def dropped(self) -> int:
+        return sum(ts.dropped for _tid, ts in self._threads)
+
+    def name_id(self, name: str) -> int:
+        """The id a site passes to ``begin``; resolve it once, at import
+        or subscription."""
+        with self._lock:
+            nid = self._ids.get(name)
+            if nid is None:
+                nid = self._ids[name] = len(self._names)
+                self._names.append(name)
+                for _tid, ts in self._threads:
+                    ts.totals.append([0.0, 0.0, 0])
+        return nid
+
+    def new_request(self) -> int:
+        """A fresh request id, current on this thread from now on."""
+        rid = self._state().request = next(self._requests)
+        return rid
+
+    def begin(self, name: int, t: float = None, request: bool = False):
+        """Open span ``name`` (an id of ``name_id``) on this thread, at
+        ``t`` when the site read the clock itself; None when it folds
+        into a running span of that name."""
+        try:
+            ts = self._local.state
+        except AttributeError:
+            ts = self._state()
+        stack = ts.stack
+        parent = stack[-1] if stack else None
+        if parent is not None and parent[_NAME] == name:
+            return None
+        if t is None:
+            t = time.perf_counter()
+        rid = ts.request
+        prev = None
+        if request:
+            prev = rid
+            rid = ts.request = next(self._requests)
+        frame = [name, next(self._span_ids), parent, t, t, 0.0, 0.0, rid,
+                 prev, ts]
+        stack.append(frame)
+        return frame
+
+    def pause(self, frame: list) -> None:
+        frame[_BUSY] += time.perf_counter() - frame[_RESUMED]
+        frame[_STATE].stack.pop()
+
+    def resume(self, frame: list) -> None:
+        frame[_RESUMED] = time.perf_counter()
+        frame[_STATE].stack.append(frame)
+
+    def end(self, frame: list, t: float = None) -> None:
+        """Close ``frame`` (at ``t`` when the site read the clock
+        itself)."""
+        frame[_BUSY] += (time.perf_counter() if t is None else t) \
+            - frame[_RESUMED]
+        frame[_STATE].stack.pop()
+        self.close(frame, 1)
+
+    def close(self, frame: list, calls: int) -> None:
+        """Book a paused frame as ``calls`` calls: totals, its parent's
+        child time, a row whose end is its start plus its busy time."""
+        busy = frame[_BUSY]
+        parent = frame[_PARENT]
+        ts = frame[_STATE]
+        if parent is not None:
+            parent[_CHILD] += busy
+        if frame[_PREV] is not None:
+            ts.request = frame[_PREV]
+        total = ts.totals[frame[_NAME]]
+        total[0] += busy
+        total[1] += busy - frame[_CHILD]
+        total[2] += calls
+        if next(self._row_numbers) >= self.capacity:
+            ts.dropped += 1
+            return
+        ts.rows += _ROW.pack(
+            frame[_ID], 0 if parent is None else parent[_ID], frame[_NAME],
+            frame[_REQUEST], calls, frame[_START], frame[_START] + busy)
+
+    def count(self, name: str, by: float = 1) -> None:
+        self._counts[name] += by
+
+    # ------------------------------------------------------------ readers
+
+    def snapshot(self) -> dict:
+        """``{"spans": {name: {"seconds", "self_seconds", "calls"}},
+        "counters": {name: value}, "rows": n, "dropped": n}``; a name
+        with no finished span is left out."""
+        with self._lock:
+            threads = [ts for _tid, ts in self._threads]
+            names = list(self._names)
+        spans = {}
+        for nid, name in enumerate(names):
+            sec, self_sec, calls = (
+                sum(ts.totals[nid][k] for ts in threads) for k in range(3))
+            if calls:
+                spans[name] = {"seconds": sec, "self_seconds": self_sec,
+                               "calls": calls}
+        return {"spans": spans, "counters": dict(self._counts),
+                "rows": sum(len(ts.rows) for ts in threads) // _ROW.size,
+                "dropped": self.dropped}
+
+    def rows(self) -> dict:
+        """The kept rows as numpy columns, thread by thread: ``id``,
+        ``parent`` (0 for a top-level span), ``name`` (ids into
+        ``names``), ``request``, ``calls``, ``tid``, ``start``, ``end``."""
+        import numpy as np
+
+        dtype = np.dtype([(f, "=i8") for f in _ROW_FIELDS[:5]]
+                         + [(f, "=f8") for f in _ROW_FIELDS[5:]])
+        with self._lock:
+            parts = [(tid, np.frombuffer(bytes(ts.rows), dtype))
+                     for tid, ts in self._threads]
+        parts.append((0, np.zeros(0, dtype)))  # so that there is one part
+        table = np.concatenate([p[1] for p in parts])
+        out = {f: table[f] for f in _ROW_FIELDS}
+        out["tid"] = np.concatenate([np.full(len(p[1]), p[0], np.int64)
+                                     for p in parts])
+        out["names"] = list(self._names)
+        return out
+
+    def arrays(self) -> dict:
+        """``{name: (starts, ends)}`` in ``perf_counter`` seconds, by
+        start: the shape of a benchmark harness's host spans."""
+        import numpy as np
+
+        rows = self.rows()
+        out = {}
+        for nid in np.unique(rows["name"]):
+            pick = rows["name"] == nid
+            order = np.argsort(rows["start"][pick], kind="stable")
+            out[rows["names"][int(nid)]] = (rows["start"][pick][order],
+                                            rows["end"][pick][order])
+        return out
+
+    def export_chrome_trace(self, path: str) -> int:
+        """Write the kept rows as a Chrome trace (one complete ``X``
+        event a span, microseconds on ``perf_counter``); returns the
+        event count."""
+        rows = self.rows()
+        pid = os.getpid()
+        names = rows["names"]
+        events = [
+            {"name": names[int(n)], "cat": "span", "ph": "X",
+             "ts": s * 1e6, "dur": (e - s) * 1e6, "pid": pid,
+             "tid": int(tid), "args": {"request": int(r),
+                                       "calls": int(c)}}
+            for n, s, e, tid, r, c in zip(
+                rows["name"], rows["start"], rows["end"], rows["tid"],
+                rows["request"], rows["calls"])]
+        with open(path, "w") as f:
+            json.dump({"traceEvents": events,
+                       "displayTimeUnit": "ms"}, f)
+        return len(events)
+
+
+#: The process's span recorder.
+SPANS = SpanRecorder()
