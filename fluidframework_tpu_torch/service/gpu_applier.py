@@ -25,14 +25,19 @@ as TPU/XLA artifacts: ``NamedSharding`` assembly, donation, the Pallas
 tile rule (docs per shard % 8) and the staging thread pool (the copies
 are asynchronous already).
 
-A dispatch has two halves. The host half (``_stage_wave``) packs the
-wave's rows (``ops/apply.pack_wave_rows``) into an int16 [D, K, 12] delta
-wave plus int32 [D, 2] bases, scatters them into one of two rotating sets
-of pinned host buffers and copies them to the card with ``non_blocking``
-on the applier's own CUDA stream. The device half (``_execute_wave``)
-enqueues ``unpack_wave16`` → ``ops/cuda_apply.apply_ops_batch`` (the
-hand-written CUDA kernel) → ``compact_batch`` at ``wave_min_seq`` on the
-same stream and records a CUDA event after it. A wave whose deltas escape
+Ingest records each array boxcar (``ingest_array_batch``) and makes no
+array for it; a flush first packs every boxcar recorded since the last
+one into op rows in one columnar pass (``_pack``), one chunk a doc. The
+dict lane (``ingest_batch``) stages its rows as it goes, after the doc's
+recorded boxcars. A dispatch then has two halves. The host half
+(``_stage_wave``) packs the wave's rows (``ops/apply.pack_wave_rows``)
+into an int16 [D, K, 12] delta wave plus int32 [D, 2] bases, scatters
+them into one of two rotating sets of pinned host buffers and copies them
+to the card with ``non_blocking`` on the applier's own CUDA stream. The
+device half (``_execute_wave``) enqueues ``unpack_wave16`` →
+``ops/cuda_apply.apply_ops_batch`` (the hand-written CUDA kernel) →
+``compact_batch`` at ``wave_min_seq`` on the same stream and records a
+CUDA event after it. A wave whose deltas escape
 int16 ships at full int32 width instead and skips the unpack. With
 ``overlap`` on (the default) nothing waits for the card, so the host
 stages wave N+1 while wave N runs; with it off every step is fenced.
@@ -54,7 +59,8 @@ and one event a step for each distinct device of the farm):
 
 With ``async_dispatch`` a worker thread owns staging, execution and the
 periodic overflow poll (it defers escalation to the caller's next sync
-point); the caller's thread only appends staged chunks under a lock.
+point); the caller's thread only records boxcars and stages chunks
+under a lock, packing at ``flush`` and ``finalize``.
 ``min_wave_ops`` holds the worker back until that many ops are staged
 (unless draining). An exception on the worker is stored and re-raised by
 the next ``flush``, ``finalize`` or ``close``; a dead worker never leaves
@@ -142,9 +148,13 @@ MARKER_GLYPH = "￼"  # arena placeholder byte for markers (flags classify)
 
 INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
+_ANNOTATE = b"\x02"  # wire kind 2 (annotate) as an int8 kind's byte
+_ONE_JSON_TEXT = (int, str, bool)  # one JSON text a (type, value)
+
 # the farm's spans (utils/telemetry.SPANS); profiler scopes name
 # each wave's kernels in a profiler's trace
 INGEST_SPAN = SPANS.name_id("applier.ingest")
+PACK_SPAN = SPANS.name_id("applier.pack")
 TAKE_SPAN = SPANS.name_id("applier.take")
 STAGE_SPAN = SPANS.name_id("applier.stage")
 EXECUTE_SPAN = SPANS.name_id("applier.execute")
@@ -277,12 +287,19 @@ class GpuDocumentApplier:
             self._zero_shards: dict = {}
         self.arenas = [TextArena() for _ in range(self.max_docs)]
         self.prop_table = PropTable()  # shared across docs; ids are dense
+        # (table, {(type, value): id}): see _intern_val
+        self._val_memo = (self.prop_table, {})
         # per-doc dense client interning (collision-free by construction)
         self._client_ids: dict[int, dict[str, int]] = {}
         # staged device ops per slot: a list of int32 [n, OP_FIELDS]
-        # chunks (one per ingested batch); _staged_ops is the row count
+        # chunks (one per dict-lane batch, one per slot a pack);
+        # _staged_ops is the row count
         self._staged: dict[int, list] = {}
         self._staged_ops = 0
+        # array boxcars recorded since the last pack, per slot in arrival
+        # order: (n, batch, boxcar, client id, arena start, the annotates'
+        # (row, key id, value id))
+        self._pending: dict[int, list] = {}
         self._host_docs: dict[int, MergeTreeClient] = {}  # escalated docs
         self._doc_keys: dict[int, tuple[str, str]] = {}
         # the host replay source: fn(tenant, doc) -> iterable of
@@ -370,7 +387,8 @@ class GpuDocumentApplier:
         """Stage a broadcast batch of (sequenced message, wire op) pairs of
         one doc, in seq order. Staging is tuple appends; one array per
         batch."""
-        span = SPANS.begin(INGEST_SPAN) if tracing() else None
+        traced = tracing()
+        span = SPANS.begin(INGEST_SPAN) if traced else None
         try:
             slot = self.slot_of(tenant_id, document_id)
             if pairs:
@@ -444,15 +462,21 @@ class GpuDocumentApplier:
                     return
             if staged:
                 self._push_chunk(slot, np.asarray(staged, np.int32))
+                if traced:
+                    SPANS.count("applier.ingest.direct_rows", len(staged))
         finally:
             if span is not None:
                 SPANS.end(span)
 
     def ingest_array_batch(self, tenant_id: str, document_id: str,
                            batch) -> None:
-        """Stage a SequencedArrayBatch (``service/array_batch.py``) as ONE
-        vectorised chunk: no per-op dicts, tuples or message objects.
-        Annotates with other than one prop key take the per-op path."""
+        """Record a SequencedArrayBatch (``service/array_batch.py``) for
+        the next flush, which packs every recorded boxcar into op rows in
+        one columnar pass (``_pack``): no per-op dicts, tuples or message
+        objects, and no array made per boxcar. What depends on arrival
+        order happens here: coverage, client interning, the arena append
+        and the annotates' property interning. Annotates with other than
+        one prop key take the per-op path."""
         span = SPANS.begin(INGEST_SPAN) if tracing() else None
         try:
             slot = self.slot_of(tenant_id, document_id)
@@ -473,53 +497,136 @@ class GpuDocumentApplier:
                 for msg, wire_op in pairs():
                     self._apply_host(slot, msg, wire_op)
                 return
-            kind = np.asarray(box.kind)
-            ann_idx = np.nonzero(kind == 2)[0]  # wire kind 2 = annotate
-            if len(ann_idx) and (
-                    box.props is None
-                    or any(len(box.props[int(i)] or {}) != 1
-                           for i in ann_idx)):
-                self.ingest_batch(tenant_id, document_id, pairs())
-                return
+            kinds = np.asarray(box.kind, np.int8).tobytes()
+            props = box.props
+            ann = []
+            i = kinds.find(_ANNOTATE)
+            while i >= 0:
+                p = None if props is None else props[i]
+                if not p or len(p) != 1:
+                    self.ingest_batch(tenant_id, document_id, pairs())
+                    return
+                ann.append(i)
+                i = kinds.find(_ANNOTATE, i + 1)
             table = self._client_ids.setdefault(slot, {})
             client = table.get(box.client_id)
             if client is None:
                 client = len(table)
                 table[box.client_id] = client
-            chunk = np.zeros((n, OP_FIELDS), np.int32)
-            # wire kinds (0 ins, 1 rem, 2 ann) → device op codes (1, 2, 3)
-            chunk[:, F_TYPE] = kind.astype(np.int32) + 1
-            chunk[:, F_POS] = box.a
-            chunk[:, F_END] = box.b
-            chunk[:, F_SEQ] = batch.base_seq + np.arange(n, dtype=np.int64)
-            chunk[:, F_REFSEQ] = box.rseq
-            chunk[:, F_CLIENT] = client
-            chunk[:, F_MSN] = batch.msns
             arena_start = self.arenas[slot].append(box.text)
-            text_off = np.asarray(box.text_off)
-            chunk[:, F_TLEN] = np.diff(text_off)
-            chunk[:, F_TSTART] = arena_start + text_off[:-1]
-            for i in ann_idx:
-                (k, v), = box.props[int(i)].items()
-                chunk[i, F_KEY] = self.prop_table.intern_key(k)
-                chunk[i, F_VAL] = (NO_VAL if v is None
-                                   else self.prop_table.intern_val(v))
-            self._push_chunk(slot, chunk)
+            if ann:
+                intern_key = self.prop_table.intern_key
+                for j, i in enumerate(ann):
+                    (k, v), = props[i].items()
+                    ann[j] = (i, intern_key(k),
+                              NO_VAL if v is None else self._intern_val(v))
+            with self._lock:
+                self._pending.setdefault(slot, []).append(
+                    (n, batch, box, client, arena_start, ann))
         finally:
             if span is not None:
                 SPANS.end(span)
 
+    def _intern_val(self, value) -> int:
+        """``prop_table.intern_val`` behind a memo of scalar values. The
+        table canonicalises every value through ``json.dumps``, which
+        costs more than the rest of a boxcar's ingest; an int, str or
+        bool has one JSON text a (type, value), so the memo answers the
+        id the table would. Other values go to the table."""
+        table = self.prop_table
+        if self._val_memo[0] is not table:  # a checkpoint load swaps it
+            self._val_memo = (table, {})
+        if type(value) not in _ONE_JSON_TEXT:
+            return table.intern_val(value)
+        memo = self._val_memo[1]
+        key = (type(value), value)
+        vid = memo.get(key)
+        if vid is None:
+            vid = memo[key] = table.intern_val(value)
+        return vid
+
+    def _pack(self) -> None:
+        """Turn every recorded array boxcar into op rows in one columnar
+        pass: one concatenation a field, seqs, clients and arena bases by
+        repeat, annotate keys and values in one assignment. Each slot
+        gets one contiguous chunk, its boxcars in arrival order, after
+        whatever it has staged already; the rows are those a pack of each
+        boxcar on its own makes, byte for byte. Takes the lock (the async
+        worker reads the staged chunks)."""
+        span = SPANS.begin(PACK_SPAN, request=True) if tracing() else None
+        try:
+            with self._lock:
+                pending, self._pending = self._pending, {}
+                entries = [e for group in pending.values() for e in group]
+                b = len(entries)
+                ns = np.fromiter([e[0] for e in entries], np.int64, b)
+                ends = np.cumsum(ns)
+                starts = ends - ns
+                total = int(ends[-1])
+                boxes = [e[2] for e in entries]
+                rows = np.zeros((total, OP_FIELDS), np.int32)
+                # wire kinds (0 ins, 1 rem, 2 ann) → op codes (1, 2, 3)
+                rows[:, F_TYPE] = np.concatenate(
+                    [bx.kind for bx in boxes]).astype(np.int32) + 1
+                rows[:, F_POS] = np.concatenate([bx.a for bx in boxes])
+                rows[:, F_END] = np.concatenate([bx.b for bx in boxes])
+                base = np.fromiter([e[1].base_seq for e in entries],
+                                   np.int64, b)
+                rows[:, F_SEQ] = (np.repeat(base - starts, ns)
+                                  + np.arange(total, dtype=np.int64))
+                rows[:, F_REFSEQ] = np.concatenate([bx.rseq for bx in boxes])
+                rows[:, F_CLIENT] = np.repeat(
+                    np.fromiter([e[3] for e in entries], np.int64, b), ns)
+                rows[:, F_MSN] = np.concatenate([e[1].msns for e in entries])
+                # a boxcar's n + 1 text offsets close with its text's
+                # length; the closing ones are no row's
+                offs = np.concatenate([bx.text_off for bx in boxes])
+                opens = np.ones(len(offs), bool)
+                opens[ends + np.arange(b)] = False
+                rows[:, F_TLEN] = np.diff(offs)[opens[:-1]]
+                rows[:, F_TSTART] = np.repeat(
+                    np.fromiter([e[4] for e in entries], np.int64, b),
+                    ns) + offs[opens]
+                at, keys, vals = [], [], []
+                for first, e in zip(starts.tolist(), entries):
+                    for i, k, v in e[5]:
+                        at.append(first + i)
+                        keys.append(k)
+                        vals.append(v)
+                if at:
+                    rows[at, F_KEY] = keys
+                    rows[at, F_VAL] = vals
+                # each slot's rows: one contiguous chunk
+                lo = 0
+                group_ends = ends[np.cumsum(
+                    [len(group) for group in pending.values()]) - 1]
+                for slot, hi in zip(pending, group_ends.tolist()):
+                    self._staged.setdefault(slot, []).append(rows[lo:hi])
+                    lo = hi
+                self._staged_ops += total
+        finally:
+            if span is not None:
+                SPANS.end(span)
+        if span is not None:
+            SPANS.count("applier.ingest.packed_rows", total)
+
     def _push_chunk(self, slot: int, chunk: np.ndarray) -> None:
-        """Append a staged [n, OP_FIELDS] chunk (the ONLY staging-count
-        mutation point besides _take_wave_locked/_drop_staged)."""
+        """Append a staged [n, OP_FIELDS] chunk of the dict lane (with
+        _pack, the ONLY staging-count mutation points besides
+        _take_wave_locked/_drop_staged). The slot's recorded boxcars are
+        packed first: they arrived before it."""
+        if slot in self._pending:
+            self._pack()
         with self._lock:
             self._staged.setdefault(slot, []).append(chunk)
             self._staged_ops += len(chunk)
 
     def _drop_staged(self, slot: int) -> None:
-        """Discard a slot's staged chunks (escalation path), keeping the
-        staged-op count consistent."""
+        """Discard a slot's staged chunks and recorded boxcars (escalation
+        path: the replay holds them), keeping the staged-op count
+        consistent."""
         with self._lock:
+            self._pending.pop(slot, None)
             dropped = self._staged.pop(slot, None)
             if dropped:
                 self._staged_ops -= sum(len(c) for c in dropped)
@@ -587,11 +694,15 @@ class GpuDocumentApplier:
         by the periodic overflow poll or by ``finalize()``/queries."""
         if self._async:
             self._check_worker()
+            if self._pending:
+                self._pack()
             self._wake.set()
             return 0
         return self._flush_sync()
 
     def _flush_sync(self) -> int:
+        if self._pending:
+            self._pack()
         total = 0
         with self._on_streams():
             while self._staged:
@@ -605,6 +716,8 @@ class GpuDocumentApplier:
         """Flush staged ops and fence the device: after this, every doc's
         state (or its host escalation) reflects everything ingested."""
         if self._async:
+            if self._pending:
+                self._pack()
             self._draining = True
             try:
                 while True:
@@ -1119,7 +1232,7 @@ class GpuDocumentApplier:
         if self._async:
             self.finalize()
             return
-        if self._staged.get(slot):
+        if self._staged.get(slot) or slot in self._pending:
             self.flush()
         if self._dispatches_since_check:
             self._check_overflow()

@@ -12,11 +12,14 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from fluidframework_tpu_torch.service import gpu_applier
+from fluidframework_tpu_torch.service.array_batch import ArrayBoxcar
 from fluidframework_tpu_torch.service.broadcaster import PubSub
 from fluidframework_tpu_torch.service.gpu_applier import GpuDocumentApplier
 from fluidframework_tpu_torch.service.load_gen import wire_applier
@@ -249,14 +252,133 @@ def test_a_traced_server_and_farm(recorder):
     # the farm's wave counters; the stage and execute spans are the
     # intervals of the farm's own timers
     counters = snap["counters"]
-    assert set(counters) == {"applier.wave.rows", "applier.wave.slots"}
+    assert set(counters) == {"applier.wave.rows", "applier.wave.slots",
+                             "applier.ingest.packed_rows"}
     assert 0 < counters["applier.wave.rows"] <= counters["applier.wave.slots"]
+    # every op of the array lane took the flush's columnar pack
+    assert counters["applier.ingest.packed_rows"] == svc.app.ops_applied
     assert counters["applier.wave.slots"] == len(waves) * 4 * 8
     assert counters["applier.wave.rows"] == svc.app.ops_applied
     assert _seconds(snap, "applier.stage") == pytest.approx(
         svc.app.stage_seconds, rel=1e-9)
     assert _seconds(snap, "applier.execute") == pytest.approx(
         svc.app.exec_seconds, rel=1e-9)
+
+
+def _two_key_boxcar(conn, editor) -> ArrayBoxcar:
+    """An insert and an annotate with two keys: the farm hands the
+    boxcar to the dict lane, which stages its rows op by op."""
+    base = editor.client_seq
+    editor.client_seq = base + 2
+    return ArrayBoxcar(
+        tenant_id=TENANT, document_id=conn.document_id,
+        client_id=conn.client_id, ds_id=DS_ID, channel_id=CHANNEL_ID,
+        kind=np.array([0, 2], np.int8), a=np.array([0, 0], np.int32),
+        b=np.array([0, 1], np.int32),
+        cseq=np.arange(base + 1, base + 3, dtype=np.int32),
+        rseq=np.full(2, editor.ref_seq, np.int32), text="ab",
+        text_off=np.array([0, 2, 2], np.int32),
+        props=[None, {"a": 1, "b": 2}])
+
+
+class _Run:
+    """What a metric reader reads of a run here: the acked ops."""
+
+    def __init__(self, acked: int):
+        self.counts = {"acked_ops": acked}
+
+
+def _reader(name: str):
+    from portbench import spec
+    from portbench.tests.conftest import REPO
+
+    return spec.reader(REPO, name)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_the_pack_span_and_ingest_counters(recorder, mixed):
+    """``applier.pack`` and the ingest counters are recorded only while
+    tracing; ``packed_share`` reads 100 on a flood stream and below 100
+    once a boxcar takes the dict lane."""
+    svc = Service()
+    conn, editor = svc.sessions[0]
+
+    def run():
+        """A boxcar a session, then (mixed) the two-key boxcar, whose
+        doc has boxcars recorded; flush and drain."""
+        boxcars = 0
+        for conn_, editor_ in svc.sessions:
+            conn_.submit_array(editor_.next_boxcar(
+                BOXCAR, TENANT, conn_.document_id, conn_.client_id))
+            boxcars += 1
+        if mixed:
+            conn.submit_array(_two_key_boxcar(conn, editor))
+        svc.app.flush()
+        svc.app.finalize()
+        return boxcars
+
+    run()
+    assert recorder.snapshot()["spans"] == {}
+    assert recorder.snapshot()["counters"] == {}
+    assert _reader("packed_share.flood").read(_Run(1)) is None
+    assert _reader("pack_us_per_op.flood").read(_Run(1)) is None
+    applied = svc.app.ops_applied
+    with traced():
+        boxcars = run()
+    snap = recorder.snapshot()
+    counters = snap["counters"]
+    rows = svc.app.ops_applied - applied
+    # one pass: at the flush, or (mixed) before the dict-lane chunk of a
+    # doc with boxcars recorded, which leaves the flush nothing to pack
+    assert _calls(snap, "applier.pack") == 1
+    assert counters["applier.ingest.packed_rows"] + counters.get(
+        "applier.ingest.direct_rows", 0) == rows
+    assert counters["applier.ingest.packed_rows"] == BOXCAR * boxcars
+    share = _reader("packed_share.flood").read(_Run(rows))
+    pack_us = _reader("pack_us_per_op.flood").read(_Run(rows))
+    assert pack_us > 0
+    if mixed:
+        # the insert, and the annotate once a key
+        assert counters["applier.ingest.direct_rows"] == 3
+        assert share == pytest.approx(100.0 * (rows - 3) / rows)
+        assert share < 100
+    else:
+        assert "applier.ingest.direct_rows" not in counters
+        assert share == 100.0
+
+
+def test_off_the_pack_costs_one_tracing_check_a_flush(recorder,
+                                                      monkeypatch):
+    """Off, the pass reads ``tracing()`` once a flush; ingest reads it
+    once a boxcar, as before."""
+    svc = Service()
+    checks = []
+
+    def counted():
+        checks.append(1)
+        return False
+
+    packs = []
+    pack = svc.app._pack
+
+    def counted_pack():
+        packs.append(len(checks))
+        pack()
+        packs.append(len(checks))
+
+    monkeypatch.setattr(svc.app, "_pack", counted_pack)
+    monkeypatch.setattr(gpu_applier, "tracing", counted)
+    boxcars = 0
+    for conn, editor in svc.sessions:
+        conn.submit_array(editor.next_boxcar(
+            BOXCAR, TENANT, conn.document_id, conn.client_id))
+        boxcars += 1
+    assert len(checks) == boxcars  # the ingest span's check
+    svc.app.flush()
+    assert len(packs) == 2 and packs[1] - packs[0] == 1
+    svc.app.finalize()
+    assert len(packs) == 2  # nothing left recorded: no second pass
+    assert recorder.snapshot()["rows"] == 0
 
 
 def test_the_spans_share_the_profilers_clock(recorder):
@@ -350,7 +472,8 @@ READERS = ("entry_us_per_op.flood", "deli_us_per_op.flood",
            "store_us_per_op.flood", "fanout_us_per_op.flood",
            "sessions_us_per_op.flood", "assemble_us_per_op.flood",
            "launch_us_per_op.flood", "card_wait_us_per_op.flood",
-           "wave_fill.flood")
+           "wave_fill.flood", "pack_us_per_op.flood",
+           "packed_share.flood")
 
 
 @pytest.fixture
@@ -400,6 +523,7 @@ def test_the_benchmarks_span_readers(recorder, tiny_bench, profiled,
     assert set(READERS) <= set(got)
     assert all(isinstance(got[k], float) for k in READERS)
     assert 0 < got["wave_fill.flood"] <= 100
+    assert got["packed_share.flood"] == 100.0
     snap = recorder.snapshot()
     acked = out["attempted"] - out["failed"]
     parts = sum(got[k] for k in READERS[:5]) * acked / 1e6 + _seconds(
