@@ -80,8 +80,9 @@ from ..utils.affinity import loop_only, ticker_thread
 from ..protocol import binwire
 from ..protocol.messages import Nack, NackErrorType, Signal, TraceHop
 from ..protocol.serialization import message_from_dict, message_to_dict
-from ..utils.telemetry import (HOP_ADMIT, HOP_SERVICE_ACTION,
-                               count_unknown_hops, hop_pairs)
+from ..utils import telemetry
+from ..utils.telemetry import (HOP_ADMIT, HOP_SERVICE_ACTION, SPANS,
+                               count_unknown_hops, hop_pairs, tracing)
 from .admission import AdmissionController, retry_after_ms
 from .array_batch import ArrayBoxcar
 from .local_server import LocalServer, ServerConnection
@@ -95,6 +96,17 @@ DEFAULT_MAX_MESSAGE_SIZE = 16 * 1024  # per-op cap, nacked (ref :96)
 # partition: long enough for checkpoint+handoff of a hot partition,
 # short enough to keep the client-visible migration blip small
 MIGRATION_RETRY_S = 0.05
+#: a durable-log core checkpoints each doc's pipeline this often, a part
+#: of the docs at a time (serve_forever)
+CHECKPOINT_EVERY_S = 2.0
+CHECKPOINT_PARTS = 8
+#: backchannel records a core takes from a stage's log a loop pass
+BACKCHANNEL_BATCH = 128
+#: the core's spans: an ingress batch (frame reads, decode, the pipeline
+#: nested), the log flush that gates its acks, the held frames' writes
+INGRESS_SPAN = SPANS.name_id("net.ingress")
+FLUSH_SPAN = SPANS.name_id("log.flush")
+EGRESS_SPAN = SPANS.name_id("net.egress")
 
 
 def _encode_frame(obj: dict) -> bytes:
@@ -520,7 +532,7 @@ class _ClientSession:
                        "admin_placement_drain", "admin_migrate_part",
                        "admin_journal", "admin_metrics_history",
                        "admin_flight_dump", "admin_boot_status",
-                       "admin_health"):
+                       "admin_health", "admin_spans"):
                 self._handle_admin(t, frame, rid)
             elif t == "ping":
                 # client liveness probe on an idle connection (the
@@ -1176,6 +1188,13 @@ class _ClientSession:
             # soak can assert coalescing/flush-eliding actually engaged
             self.push("admin", {"rid": rid,
                                 "counters": front.counters.snapshot()})
+        elif t == "admin_spans":
+            # the process's span recorder without a profiler: on resets
+            # and starts it, off stops it and answers its totals
+            on = bool(frame.get("on"))
+            telemetry.record(on)
+            self.push("admin", {"rid": rid, "spans": None if on
+                                else SPANS.snapshot()})
         elif t == "admin_metrics_scrape":
             # read-only: the process-wide registry as Prometheus text —
             # every live tier Counters plus the labeled hop-pair series
@@ -2206,13 +2225,18 @@ class NetworkFrontEnd:
 
     def _release_held(self) -> None:
         held, self._held = self._held, None
-        for writer, data in held:
-            if writer.is_closing():
-                continue
-            try:
-                writer.write(data)
-            except RuntimeError:
-                pass  # transport torn down mid-shutdown; peer is gone
+        span = SPANS.begin(EGRESS_SPAN) if tracing() else None
+        try:
+            for writer, data in held:
+                if writer.is_closing():
+                    continue
+                try:
+                    writer.write(data)
+                except RuntimeError:
+                    pass  # transport torn down mid-shutdown; peer is gone
+        finally:
+            if span is not None:
+                SPANS.end(span)
 
     def _flush_dirty(self) -> None:
         """Flush only the logs the current ingress batch dirtied.
@@ -2228,14 +2252,19 @@ class NetworkFrontEnd:
             self.counters.inc("net.flush.elided", n_all)
             return
         flushed = 0
-        for server in dirty:
-            log = server.log
-            if hasattr(log, "flush"):
-                try:
-                    log.flush()
-                except OSError:
-                    continue  # partition revoked mid-teardown
-                flushed += 1
+        span = SPANS.begin(FLUSH_SPAN) if tracing() else None
+        try:
+            for server in dirty:
+                log = server.log
+                if hasattr(log, "flush"):
+                    try:
+                        log.flush()
+                    except OSError:
+                        continue  # partition revoked mid-teardown
+                    flushed += 1
+        finally:
+            if span is not None:
+                SPANS.end(span)
         dirty.clear()
         self.counters.inc("net.flush.performed", flushed)
         if n_all > flushed:
@@ -2299,6 +2328,8 @@ class NetworkFrontEnd:
                 outer = self._log_flush and self._held is None
                 if outer:
                     self._held = []
+                # one row a batch; nothing inside it yields to the loop
+                span = SPANS.begin(INGRESS_SPAN) if tracing() else None
                 try:
                     n = 0
                     deferred: list = []
@@ -2338,6 +2369,8 @@ class NetworkFrontEnd:
                 finally:
                     if outer:
                         self._release_held()
+                    if span is not None:
+                        SPANS.end(span)
                 await writer.drain()
         except (ValueError, json.JSONDecodeError):
             pass  # malformed stream: drop the connection
@@ -2460,15 +2493,22 @@ class NetworkFrontEnd:
             await asyncio.sleep(interval)
 
     async def _poll_backchannels(self) -> None:
+        from .stage_runner import BACKCHANNEL_TOPIC
+
         while True:
             moved = False
             for bc in self._backchannels:
                 try:
                     if bc.poll():
-                        bc.drain()
+                        # a stage reports every doc it holds at each of
+                        # its checkpoints: take them a batch a pass, so
+                        # the loop serves acks between batches
+                        for _ in range(BACKCHANNEL_BATCH):
+                            if not bc.step(BACKCHANNEL_TOPIC):
+                                break
                         moved = True
                 except Exception as e:  # noqa: BLE001
-                    # drain advances the cursor BEFORE the handler runs,
+                    # step advances the cursor BEFORE the handler runs,
                     # so continuing resumes at the NEXT record — one
                     # poisoned record must not kill every stage's
                     # pipeline (it used to: the task died silently)
@@ -2618,13 +2658,23 @@ class NetworkFrontEnd:
         if self._log_flush:
             # durable-log deployment: periodic pipeline checkpoints so a
             # killed core resumes from them (deli/scribe offsets +
-            # scriptorium retention base ride the checkpoint topic)
+            # scriptorium retention base ride the checkpoint topic).
+            # Every doc every CHECKPOINT_EVERY_S, one of CHECKPOINT_PARTS
+            # parts of the docs a tick: at 1,024 busy docs the whole set
+            # at once held the loop, and every ack behind it, for
+            # 0.2-0.5 s every 2 s
+            tick = [0]
+
             def _checkpoint():
+                part = (tick[0] % CHECKPOINT_PARTS, CHECKPOINT_PARTS)
+                tick[0] += 1
                 for server in self._all_servers():
-                    server.checkpoint_all()
+                    server.checkpoint_all(part)
                 self._flush_logs()
-                loop.call_later(2.0, _checkpoint)
-            loop.call_later(2.0, _checkpoint)
+                loop.call_later(CHECKPOINT_EVERY_S / CHECKPOINT_PARTS,
+                                _checkpoint)
+            loop.call_later(CHECKPOINT_EVERY_S / CHECKPOINT_PARTS,
+                            _checkpoint)
         # readiness marker for process supervisors / tests
         print(f"LISTENING {self.host}:{self.port}", flush=True)
         loop.run_forever()

@@ -434,7 +434,13 @@ class LocalServer:
         self, tenant_id: str, document_id: str, from_seq: int, to_seq: int
     ) -> list[SequencedDocumentMessage]:
         """REST backfill (alfred /deltas): ops with from_seq < seq < to_seq."""
+        booted = f"{tenant_id}/{document_id}" not in self._orderers
         orderer = self._get_orderer(tenant_id, document_id)
+        if booted:
+            # a pipeline built by this read (a restarted core's first
+            # touch of the doc) replays its log at the next drain: drain
+            # now, or the range reads empty
+            self._maybe_drain()
         try:
             return orderer.scriptorium.get_deltas(
                 tenant_id, document_id, from_seq, to_seq)
@@ -481,9 +487,14 @@ class LocalServer:
             orderer.deli.check_idle_clients()
         self._maybe_drain()
 
-    def checkpoint_all(self) -> None:
-        for orderer in self._orderers.values():
-            orderer.checkpoint()
+    def checkpoint_all(self, part: Optional[tuple] = None) -> None:
+        """Checkpoint every dirty pipeline; with ``part`` = ``(k, n)``
+        only those whose doc key hashes to ``k`` of ``n`` (a core's
+        ticker walks the ``n`` parts in turn, so no tick stalls its loop
+        for every doc at once)."""
+        for key, orderer in self._orderers.items():
+            if part is None or hash(key) % part[1] == part[0]:
+                orderer.checkpoint()
 
     def restart_orderer(self, tenant_id: str, document_id: str) -> None:
         """Simulate a partition restart: tear down the document's pipeline

@@ -41,9 +41,17 @@ Deployment:
         --stage applier --log-dir LOG --state-dir STATE [--device cuda]
 
 The command line builds an ``ApplierStage`` of the class's default
-geometry (64 docs); a farm of another size constructs
-``ApplierStage(log_dir, state_dir, max_docs=..., max_slots=...)`` itself
-and calls ``run_forever``. It prints ``READY`` once it polls.
+geometry (64 docs) unless given ``--max-docs``/``--max-slots``, prints
+``READY`` and runs ``run_forever``. A host process may build the stage
+itself (``ApplierStage(log_dir, state_dir, **farm)``, the farm's whole
+geometry), run the same loop for a while (``run_forever(until=...)``)
+and then ``ApplierStage.drain_to`` given per-doc seqs.
+
+Spans (``utils/telemetry.SPANS``, while ``tracing()``): ``stage.poll``
+(the tail's poll), ``stage.drain`` (delivery into the stage's consumers,
+the farm's ``applier.ingest`` nested) and ``stage.checkpoint``; an
+applier stage's checkpoint also counts ``stage.checkpoint.readback_s``,
+``.write_s`` and ``.bytes`` from its save.
 """
 
 from __future__ import annotations
@@ -52,14 +60,29 @@ import argparse
 import os
 import signal
 import time
-from typing import Optional
+from dataclasses import replace
+from typing import Callable, Optional
 
 from ..protocol.messages import MessageType
+from ..utils.telemetry import SPANS, tracing
 from .core import InMemoryDb, summary_versions_collection
 from .durable_log import DurableLog
 
 BACKCHANNEL_TOPIC = "backchannel"
 POLL_INTERVAL_S = 0.002
+POLL_SPAN = SPANS.name_id("stage.poll")
+DRAIN_SPAN = SPANS.name_id("stage.drain")
+CHECKPOINT_SPAN = SPANS.name_id("stage.checkpoint")
+
+
+def _spanned(name: int, fn):
+    """``fn()`` inside span ``name`` while ``tracing()``."""
+    span = SPANS.begin(name) if tracing() else None
+    try:
+        return fn()
+    finally:
+        if span is not None:
+            SPANS.end(span)
 
 
 def _doc_of(topic: str) -> tuple[str, str]:
@@ -174,19 +197,22 @@ class _StageHostBase:
                 return True
         return False
 
-    def run_forever(self) -> None:
-        print("READY", flush=True)
+    def run_forever(self, until: Optional[Callable[[], bool]] = None) -> None:
+        """The stage's loop: discover every 0.25 s, poll, drain,
+        checkpoint every ``checkpoint_every_s``, flush the state log,
+        sleep ``POLL_INTERVAL_S`` when idle. Runs until ``until()`` is
+        true, checked once an iteration (forever without it)."""
         last_discover = 0.0
         self._ctl = {"mode": "run"}
         self._ctl_mtime = None
         self._steps_done = 0
-        while True:
+        while until is None or not until():
             now = time.monotonic()
             if now - last_discover >= 0.25:  # listdir is not free at 2ms
                 last_discover = now
                 self.discover()
                 self._read_ctl()
-            moved = self.shared.poll()
+            moved = _spanned(POLL_SPAN, self.shared.poll)
             if self._ctl.get("mode") != "pause":
                 # leaving (or never entering) a pause episode resets the
                 # step ledger: each pause session's budget counts from 0,
@@ -200,16 +226,16 @@ class _StageHostBase:
                     self._steps_done += 1
                     stepped = True
                 if stepped:
-                    self.checkpoint()
+                    _spanned(CHECKPOINT_SPAN, self.checkpoint)
                     self.state.flush()
                 time.sleep(0.01)
                 continue
             if moved:
-                self.shared.drain()
+                _spanned(DRAIN_SPAN, self.shared.drain)
             now = time.monotonic()
             if now - self._last_checkpoint >= self.checkpoint_every_s:
                 self._last_checkpoint = now
-                self.checkpoint()
+                _spanned(CHECKPOINT_SPAN, self.checkpoint)
             self.state.flush()
             if not moved:
                 time.sleep(POLL_INTERVAL_S)
@@ -221,10 +247,10 @@ class _StageHostBase:
         SimulatedCrash exactly at the armed window. Returns whether the
         poll found new records."""
         self.discover()
-        moved = self.shared.poll()
+        moved = _spanned(POLL_SPAN, self.shared.poll)
         if moved:
-            self.shared.drain()
-        self.checkpoint()
+            _spanned(DRAIN_SPAN, self.shared.drain)
+        _spanned(CHECKPOINT_SPAN, self.checkpoint)
         self.state.flush()
         return moved
 
@@ -324,12 +350,14 @@ class ScribeStage(_StageHostBase):
 
 class ApplierStage(_StageHostBase):
     """GpuDocumentApplier out of process: device work off the core GIL.
-    ``device`` defaults to ``cuda`` and raises without a card."""
+    ``device`` defaults to ``cuda`` and raises without a card. ``farm``
+    is the rest of a new farm's geometry (``ops_per_dispatch``, ...),
+    passed to ``GpuDocumentApplier``."""
 
     def __init__(self, log_dir: str, state_dir: str,
                  max_docs: int = 64, max_slots: int = 256,
                  ds_id: str = "default", channel_id: str = "text",
-                 partition=None, device=None):
+                 partition=None, device=None, **farm):
         from ..device import resolve_device
         from .gpu_applier import GpuDocumentApplier, load_applier_checkpoint
 
@@ -344,12 +372,15 @@ class ApplierStage(_StageHostBase):
         else:
             self.applier = GpuDocumentApplier(max_docs=max_docs,
                                               max_slots=max_slots,
-                                              device=device)
-        self.applier.set_replay_source(lambda t, d: [])
+                                              device=device, **farm)
+        # an escalated doc rebuilds on the host from the shared log
+        self.applier.set_replay_source(self._channel_stream)
         self._ckpt_path = ckpt
         # the costs of the newest farm save (save_applier_checkpoint)
         self.last_save: Optional[dict] = None
         self._offsets: dict[str, int] = {}
+        # the offsets last written to each topic's checkpoint record
+        self._saved_offsets: dict[str, int] = {}
         # highest sequence number CONSUMED per topic (the consumer-group
         # offset semantic): the stream tail includes messages the applier
         # skips (joins, summarize/ack, other channels), and "caught up"
@@ -382,26 +413,78 @@ class ApplierStage(_StageHostBase):
             # the offset checkpoints, so a crash in between replays a
             # window of already-applied ops — skip by sequence number
             # (double-applying an insert would corrupt the doc)
-            applied = self.applier.applied_seq(tenant, doc)
-            pairs = []
-            for m in msgs:
-                if m.sequence_number <= applied:
-                    continue
-                if m.type is not MessageType.OPERATION:
-                    continue
-                env = m.contents
-                if type(env) is not dict or env.get("kind") != "chanop" \
-                        or env.get("address") != self.ds_id:
-                    continue
-                inner = env["contents"]
-                if inner.get("address") != self.channel_id \
-                        or "attach" in inner:
-                    continue
-                pairs.append((m, inner["contents"]))
+            pairs = self._channel_ops(
+                msgs, self.applier.applied_seq(tenant, doc))
             if pairs:
                 self.applier.ingest_batch(tenant, doc, pairs)
 
         self.shared.subscribe(topic, on_deltas, from_offset=start)
+
+    def consumed_seq(self, topic: str) -> int:
+        """The highest seq of ``topic`` this stage has consumed."""
+        return self._watermarks.get(topic, 0)
+
+    def drain_to(self, seqs: dict, timeout: float = 60.0) -> None:
+        """Poll and deliver until every ``(tenant, doc)`` of ``seqs`` is
+        consumed through its seq, then checkpoint and flush the state
+        log. Raises ``TimeoutError`` after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        topics = {f"deltas/{t}/{d}": seq for (t, d), seq in seqs.items()}
+        last_discover = 0.0
+        while True:
+            now = time.monotonic()
+            if now - last_discover >= 0.25:  # as run_forever: listdir
+                last_discover = now          # is not free
+                self.discover()
+            if _spanned(POLL_SPAN, self.shared.poll):
+                _spanned(DRAIN_SPAN, self.shared.drain)
+            behind = [t for t, seq in topics.items()
+                      if self.consumed_seq(t) < seq]
+            if not behind:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{len(behind)} topics not consumed through their "
+                    f"seqs after {timeout} s (first {behind[0]}: "
+                    f"{self.consumed_seq(behind[0])} of "
+                    f"{topics[behind[0]]})")
+            time.sleep(POLL_INTERVAL_S)
+        self._last_checkpoint = time.monotonic()
+        _spanned(CHECKPOINT_SPAN, self.checkpoint)
+        self.state.flush()
+
+    def _channel_ops(self, msgs, after: int = 0) -> list:
+        """``(message, op)`` of the text channel's merge-tree ops among
+        ``msgs`` past seq ``after``."""
+        out = []
+        for m in msgs:
+            if m.sequence_number <= after:
+                continue
+            if m.type is not MessageType.OPERATION:
+                continue
+            env = m.contents
+            if type(env) is not dict or env.get("kind") != "chanop" \
+                    or env.get("address") != self.ds_id:
+                continue
+            inner = env["contents"]
+            if inner.get("address") != self.channel_id \
+                    or "attach" in inner:
+                continue
+            out.append((m, inner["contents"]))
+        return out
+
+    def _channel_stream(self, tenant: str, doc: str):
+        """The doc's text-channel messages in the shared log, from the
+        start: the farm's replay source when a doc escalates to the
+        host."""
+        topic = f"deltas/{tenant}/{doc}"
+        for i in range(self.shared.length(topic)):
+            value = self.shared.read(topic, i)
+            abatch = value.get("abatch")
+            msgs = (abatch.messages() if abatch is not None
+                    else value.get("boxcar") or [value["message"]])
+            for m, op in self._channel_ops(msgs):
+                yield replace(m, contents=op)
 
     def checkpoint(self) -> None:
         from .gpu_applier import save_applier_checkpoint
@@ -412,8 +495,13 @@ class ApplierStage(_StageHostBase):
         self._fault("stage.pre_checkpoint")
         self.applier.flush()
         self.applier.finalize()
-        self.last_save = save_applier_checkpoint(self.applier,
-                                                 self._ckpt_path)
+        self.last_save = save = save_applier_checkpoint(self.applier,
+                                                        self._ckpt_path)
+        if tracing():
+            SPANS.count("stage.checkpoint.readback_s",
+                        save["readback_seconds"])
+            SPANS.count("stage.checkpoint.write_s", save["write_seconds"])
+            SPANS.count("stage.checkpoint.bytes", save["npz_bytes"])
         # crash window 2: the farm is saved but the offset checkpoints /
         # "applied" emits are not — the restart replays against a NEWER
         # farm, the skip-by-seq path's hardest case
@@ -424,9 +512,14 @@ class ApplierStage(_StageHostBase):
         wave_hops = getattr(self.applier, "last_wave_hops", None)
         if wave_hops is not None:  # consume: one fold per wave
             self.applier.last_wave_hops = None
+        saved = self._saved_offsets
         for topic, offset in self._offsets.items():
             tenant, doc = _doc_of(topic)
-            self.save_checkpoint(tenant, doc, {"offset": offset})
+            if saved.get(topic) != offset:
+                # a topic's newest offset record stands until it moves:
+                # an idle doc costs its checkpoint no write
+                self.save_checkpoint(tenant, doc, {"offset": offset})
+                saved[topic] = offset
             rec = {"kind": "applied", "tenant": tenant, "doc": doc,
                    "applied_seq": max(
                        self._watermarks.get(topic, 0),
@@ -467,8 +560,10 @@ def main() -> None:
     kwargs = ({"device": args.device, "max_docs": args.max_docs,
                "max_slots": args.max_slots}
               if args.stage == "applier" else {})
-    STAGES[args.stage](args.log_dir, args.state_dir,
-                       partition=partition, **kwargs).run_forever()
+    stage = STAGES[args.stage](args.log_dir, args.state_dir,
+                               partition=partition, **kwargs)
+    print("READY", flush=True)
+    stage.run_forever()
 
 
 if __name__ == "__main__":

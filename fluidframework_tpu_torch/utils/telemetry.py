@@ -16,7 +16,8 @@ per-hop latency breakdown the socket load reports.
 ``SPANS`` is the process's span recorder: host spans at the layer
 boundaries inside one process (deli, the store, the fan-out, the replica
 farm's waves), on ``time.perf_counter``, kept in memory while
-``tracing()`` is true and free when it is not.
+``tracing()`` is true and free when it is not; ``record`` switches it
+on where no profiler runs.
 """
 
 from __future__ import annotations
@@ -328,7 +329,8 @@ class TraceAggregator:
 # It is on while a ``torch.profiler`` session runs (the profiler keeps
 # ``torch.autograd.profiler._is_profiler_enabled`` for exactly this
 # check), so a profiled window gets the program's spans with no switch of
-# its own. Spans share ``time.perf_counter`` with the callers' own host
+# its own, and while ``record(True)`` holds it on in a process that runs
+# no profiler. Spans share ``time.perf_counter`` with the callers' own host
 # timers.
 
 
@@ -349,11 +351,25 @@ class _ProfilerUnbound:
 
 _profiler = _ProfilerUnbound()
 
+#: Whether this process's recorder was started by ``record(True)`` (the
+#: core's ``admin_spans`` RPC): a process that maps no libtorch runs no
+#: profiler, so this is how its spans are switched on.
+_recording = False
+
 
 def tracing() -> bool:
     """Whether span sites record: a ``torch.profiler`` session is
-    active."""
-    return _profiler._is_profiler_enabled
+    active, or the recorder was started with ``record(True)``."""
+    return _recording or _profiler._is_profiler_enabled
+
+
+def record(on: bool) -> None:
+    """Start (after a ``SPANS.reset()``) or stop recording spans without
+    a profiler."""
+    global _recording
+    if on:
+        SPANS.reset()
+    _recording = on
 
 
 def span_of(callback: Callable) -> Optional[str]:

@@ -659,3 +659,40 @@ def test_local_server_reopens_over_its_directory(tmp_path):
     assert last.contents == {"text": "after restart"}
     assert last.sequence_number == seq_before + 2
     server2.log.close()
+
+
+def test_a_fresh_server_serves_get_deltas_and_checkpoints_in_parts(tmp_path):
+    """A server built over another's durable log serves a doc's deltas
+    at its first read (the read drains the replay it starts), and
+    ``checkpoint_all((k, n))`` over k = 0..n-1 checkpoints every dirty
+    pipeline exactly once."""
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.service.load_gen import run_inproc_on
+    from fluidframework_tpu_torch.service.local_server import LocalServer
+
+    log_dir = tmp_path / "log"
+    log_dir.mkdir()
+    first = LocalServer(log=DurableLog(str(log_dir)))
+    run_inproc_on(first, n_docs=6, clients_per_doc=2, ops_per_client=12,
+                  batch_size=6, array_lane=True)
+    keys = sorted(first._orderers)
+    want = {k: len(first.get_deltas(*k.split("/"), 0, 1 << 31))
+            for k in keys}
+    counts = dict.fromkeys(keys, 0)
+    for key, orderer in first._orderers.items():
+        checkpoint = orderer.checkpoint
+
+        def counted(key=key, checkpoint=checkpoint):
+            counts[key] += 1
+            checkpoint()
+        orderer.checkpoint = counted
+    for k in range(3):
+        first.checkpoint_all((k, 3))
+    assert set(counts.values()) == {1}
+    first.log.flush()
+    fresh = LocalServer(log=DurableLog(str(log_dir), readonly=True))
+    assert {k: len(fresh.get_deltas(*k.split("/"), 0, 1 << 31))
+            for k in keys} == want
+    assert all(n > 0 for n in want.values())
+    first.log.close()
+    fresh.log.close()

@@ -767,3 +767,79 @@ def test_run_load_start_gate(front_end):
     assert r["late_s"] == 0.0
     assert gate_at[0][1] <= r["started_at"] < r["ended_at"]
     assert columnar() == before + 4 * 2 * 2
+
+
+def test_admin_spans_records_a_core_process(tmp_path):
+    """``admin_spans``: on resets and starts a core process's span
+    recorder with no profiler in it, off stops it and answers its totals:
+    the ingress batches, the log flush that gates their acks and the held
+    frames' egress, with ``server.submit`` and the pipeline's spans nested
+    in the ingress."""
+    import asyncio
+
+    from fluidframework_tpu_torch.service.load_async import run_load
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service.front_end",
+         "--port", "0", "--log-dir", str(tmp_path / "log")],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        cwd=str(ROOT))
+    try:
+        line = proc.stdout.readline().strip()
+        assert line.startswith("LISTENING"), line
+        port = int(line.rsplit(":", 1)[1])
+        t = _Transport("127.0.0.1", port, timeout=30.0)
+        try:
+            assert t.request({"t": "admin_spans", "on": True})[
+                "spans"] is None
+            r = asyncio.run(run_load("127.0.0.1", port, 4, 2, 3, 4, 50.0, 0,
+                                     "sp"))
+            assert r["acked"] == r["ops"] == 4 * 2 * 3 * 4
+            snap = t.request({"t": "admin_spans", "on": False})["spans"]
+        finally:
+            t.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    spans = snap["spans"]
+    for name in ("net.ingress", "log.flush", "net.egress", "server.submit",
+                 "deli", "scriptorium", "scribe", "broadcaster"):
+        assert spans[name]["calls"] > 0, name
+    assert spans["server.submit"]["calls"] >= 4 * 2 * 3
+    ingress = spans["net.ingress"]
+    nested = sum(spans[n]["seconds"] for n in ("server.submit", "log.flush",
+                                                "net.egress"))
+    assert ingress["seconds"] - ingress["self_seconds"] >= 0.99 * nested
+
+
+def test_core_spans_are_off_without_a_switch(tmp_path):
+    """With no profiler and the recorder not started, a core over a
+    durable log serves its load and its recorder keeps nothing."""
+    import asyncio
+
+    from fluidframework_tpu_torch.service.durable_log import DurableLog
+    from fluidframework_tpu_torch.service.load_async import run_load
+    from fluidframework_tpu_torch.utils import telemetry
+    from fluidframework_tpu_torch.utils.telemetry import SPANS
+
+    assert not telemetry.tracing()
+    SPANS.reset()
+    (tmp_path / "log").mkdir()
+    fe = NetworkFrontEnd(LocalServer(
+        log=DurableLog(str(tmp_path / "log")))).start_background()
+    try:
+        r = asyncio.run(run_load("127.0.0.1", fe.port, 2, 2, 2, 4, 50.0, 0,
+                                 "off"))
+        assert r["acked"] == r["ops"]
+        assert fe.counters.snapshot()["net.flush.performed"] > 0
+        snap = SPANS.snapshot()
+        assert snap["spans"] == {} and snap["rows"] == 0
+        telemetry.record(True)
+        try:
+            assert telemetry.tracing()
+        finally:
+            telemetry.record(False)
+        assert not telemetry.tracing()
+    finally:
+        fe.stop()
+        fe.server.log.close()

@@ -283,3 +283,108 @@ def test_applier_stage_without_device_needs_a_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ApplierStage(str(tmp_path / "log"), str(tmp_path / "state"))
     assert not os.path.exists(tmp_path / "state")
+
+
+def test_bounded_loop_keeps_its_cadence_and_spans(tmp_path):
+    """``run_forever(until=)`` is the command line's loop, bounded: it
+    checkpoints once a ``checkpoint_every_s``, records ``stage.poll``,
+    ``stage.drain`` and ``stage.checkpoint`` (with the save's counters)
+    under a profiler, and ``drain_to`` ends with every doc consumed
+    through its seq and a checkpoint. The farm takes the whole geometry,
+    ``ops_per_dispatch`` included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidframework_tpu_torch.utils.telemetry import SPANS
+
+    log_dir, state_dir = str(tmp_path / "log"), str(tmp_path / "state")
+    cpu = GpuDocumentApplier(device="cpu", max_docs=RUN["n_docs"],
+                             max_slots=256)
+    _write_log("port", log_dir, 4, True, applier=cpu)
+    want = {("bench", doc): cpu.applied_seq("bench", doc) for doc in DOCS}
+    stage = ApplierStage(log_dir, state_dir, device="cpu",
+                         ops_per_dispatch=4, **FARM)
+    assert stage.applier.K == 4
+    saves = []
+    checkpoint = stage.checkpoint
+
+    def timed():
+        saves.append(time.monotonic())
+        checkpoint()
+    stage.checkpoint = timed
+    SPANS.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            end = time.monotonic() + 2.5
+            stage.run_forever(until=lambda: time.monotonic() >= end)
+            snap = SPANS.snapshot()
+        assert 2 <= len(saves) <= 3
+        assert all(b - a >= stage.checkpoint_every_s
+                   for a, b in zip(saves, saves[1:]))
+        for name in ("stage.poll", "stage.drain", "stage.checkpoint"):
+            assert snap["spans"][name]["calls"] >= 1, name
+        assert snap["spans"]["stage.checkpoint"]["calls"] == len(saves)
+        assert snap["counters"]["stage.checkpoint.bytes"] > 0
+        assert snap["counters"]["stage.checkpoint.write_s"] > 0
+        assert snap["counters"]["stage.checkpoint.readback_s"] >= 0
+        n = len(saves)
+        stage.drain_to(want, timeout=30)
+        assert len(saves) == n + 1
+        for (tenant, doc), seq in want.items():
+            assert stage.consumed_seq(f"deltas/{tenant}/{doc}") >= seq
+            assert stage.applier.get_text(tenant, doc) == \
+                cpu.get_text(tenant, doc)
+        with pytest.raises(TimeoutError):
+            stage.drain_to({("bench", DOCS[0]): 10**9}, timeout=0.2)
+    finally:
+        SPANS.reset()
+        stage.applier.close()
+        stage.shared.close()
+        stage.state.close()
+
+
+def test_an_escalated_doc_replays_the_shared_log(tmp_path):
+    """A doc that outgrows the stage's farm escalates to the host and is
+    rebuilt from the shared log's deltas (the stage's replay source), so
+    the stage's texts equal a farm wide enough to hold every doc."""
+    log_dir, state_dir = str(tmp_path / "log"), str(tmp_path / "state")
+    cpu = GpuDocumentApplier(device="cpu", max_docs=RUN["n_docs"],
+                             max_slots=256)
+    _write_log("port", log_dir, 5, True, applier=cpu)
+    assert cpu.host_escalations == 0
+    stage = ApplierStage(log_dir, state_dir, device="cpu", max_docs=8,
+                         max_slots=16)
+    try:
+        _drain(stage)
+        assert stage.applier.host_escalations > 0
+        for doc in DOCS:
+            assert stage.applier.get_text("bench", doc) == \
+                cpu.get_text("bench", doc)
+    finally:
+        stage.applier.close()
+        stage.shared.close()
+        stage.state.close()
+
+
+def test_a_checkpoint_writes_only_moved_offsets(tmp_path):
+    """Each checkpoint reports every doc on the backchannel, but writes a
+    doc's offset record only when its offset moved since the last one."""
+    log_dir, state_dir = str(tmp_path / "log"), str(tmp_path / "state")
+    _write_log("port", log_dir, 8, True)
+    stage = ApplierStage(log_dir, state_dir, device="cpu", **FARM)
+    try:
+        _drain(stage)
+        lengths = {doc: stage.state.length(f"cp/bench/{doc}")
+                   for doc in DOCS}
+        assert all(n >= 1 for n in lengths.values())
+        reports = len(_backchannel(stage))
+        stage.run_once()  # nothing moved
+        assert {doc: stage.state.length(f"cp/bench/{doc}")
+                for doc in DOCS} == lengths
+        assert len(_backchannel(stage)) == reports + len(DOCS)
+        for doc in DOCS:
+            assert stage.load_checkpoint("bench", doc)["offset"] == \
+                stage.shared.length(f"deltas/bench/{doc}") - 1
+    finally:
+        stage.applier.close()
+        stage.shared.close()
+        stage.state.close()
