@@ -1666,17 +1666,16 @@ def _mesh_step_ms(mesh, feeds_docs, devices) -> dict:
     and the stats) against the dense step on the same packed wave: the
     second K-op wave of the phase's opgen docs, on the state the first
     left."""
-    from fluidframework_tpu_torch.ops import cuda_apply
     from fluidframework_tpu_torch.ops.apply import (
         OP_FIELDS,
         apply_ops_batch_ref,
         compact_batch,
         pack_wave_rows,
-        unpack_wave16,
         wave_min_seq,
     )
     from fluidframework_tpu_torch.ops.doc_state import DocState
     from fluidframework_tpu_torch.parallel.sharded_apply import (
+        apply_wave,
         make_sharded_packed_step,
         shard_state,
     )
@@ -1705,9 +1704,7 @@ def _mesh_step_ms(mesh, feeds_docs, devices) -> dict:
         return packed_fn(shards, w16_s, bases_s)
 
     def dense_step():
-        wave = unpack_wave16(w16_d, bases_d)
-        return compact_batch(cuda_apply.apply_ops_batch(state, wave),
-                             wave_min_seq(wave))
+        return apply_wave(state, w16_d, bases_d)
 
     if len(set(devices)) == 1:
         # the host's enqueue of one step (eager launches, ~50 a shard)
@@ -1888,7 +1885,7 @@ def phase_mesh(power: str, device: str = "cuda"):
           "staged_bytes_per_shard": per_shard,
           "one_doc_staged_bytes": one.mesh_staged_bytes,
           "one_doc_waves": one.mesh_waves,
-          "stage_seconds": app.mesh_stage_seconds,
+          "stage_seconds": app.stage_seconds,
           "exec_seconds": app.exec_seconds,
           "state_rows_match_dense": True, "texts_match_cpu": True,
           "async_texts_match": True, "checkpoint_refusal": refusal,

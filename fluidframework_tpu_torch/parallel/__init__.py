@@ -7,8 +7,9 @@ kafka-service/partitionManager.ts:22). Here:
 
 - ``mesh``          a ``[docs, seg]`` grid of ``torch.device``s; a device
                     may repeat, so several shards can share one card
-- ``sharded_apply`` doc-sharded batched apply over per-shard states, the
-                    CUDA kernel once per shard per wave
+- ``sharded_apply`` the farm's one wave step (``apply_wave``: unpack, the
+                    CUDA kernel, zamboni) and the doc-sharded steps that
+                    run it once per shard per wave
 - ``placement``     doc → shard routing table (the partition-key analog)
 - ``long_doc``      segment-sharded prefix sums and apply for one giant
                     doc, its seg shards the rows of one state

@@ -1,28 +1,35 @@
-"""Doc-sharded batched apply: the multi-device hot step.
+"""Doc-sharded batched apply: the farm's one device step.
 
 JAX counterpart: ``fluidframework_tpu/parallel/sharded_apply.py``.
 Documents are independent CRDTs, so the 'docs' mesh axis is pure data
 parallelism: each shard applies its own docs' sequenced ops (the analog of
 one Kafka partition's DocumentLambda loop, lambdas-driver
-document-router/documentLambda.ts). The only cross-shard traffic is a sum
-of scalar stats (applied-op count, overflow count), the JAX ``psum``.
+document-router/documentLambda.ts).
 
-The port's sharded state is a list of per-shard ``DocState``s, shard-major
-(shard ``s`` holds global rows ``[s * sps, (s + 1) * sps)``), each on its
-shard's device (``mesh.shard_device(s)``). A step runs each shard's body
-in shard order on that device's current stream: ``unpack_wave16`` (the
-packed lane), ``ops/cuda_apply.apply_ops_batch`` (the CUDA kernel B1 on
-CUDA tensors, the plain version on the CPU), then ``compact_batch`` at the
-wave's own ``wave_min_seq``. Dropped as TPU/XLA artifacts: ``shard_map``
-and ``NamedSharding`` (the list is the sharding), donation (the kernel
-writes a new state; the old one is freed when the caller drops it), the
-jaxpr contracts, and the ``trace_hook`` recompile counter (nothing is
-traced).
+``apply_wave`` is the only code that runs a wave on a shard's state, for a
+farm of one shard as for each shard of a mesh: ``unpack_wave16`` (a packed
+int16 wave with its bases), ``ops/cuda_apply.apply_ops_batch`` (the CUDA
+kernel B1 on CUDA tensors, the plain version on the CPU), then
+``compact_batch`` at the wave's own ``wave_min_seq``. It computes no
+statistics.
+
+A sharded state is a list of per-shard ``DocState``s, shard-major (shard
+``s`` holds global rows ``[s * sps, (s + 1) * sps)``), each on its shard's
+device (``mesh.shard_device(s)``). ``make_sharded_step`` and
+``make_sharded_packed_step`` are the JAX steps' twins: they run
+``apply_wave`` on each shard in shard order on that device's current
+stream, then sum the JAX ``psum``'s scalar stats (applied-op count,
+overflow count) over the shards. Dropped as TPU/XLA artifacts:
+``shard_map`` and ``NamedSharding`` (the list is the sharding), donation
+(the kernel writes a new state; the old one is freed when the caller drops
+it), the jaxpr contracts, and the ``trace_hook`` recompile counter
+(nothing is traced).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from contextlib import nullcontext
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -38,6 +45,34 @@ from ..ops.doc_state import FIELDS, DocState
 from .mesh import Mesh
 
 Shards = Sequence[torch.Tensor]
+_NO_SCOPE = nullcontext()
+
+
+def profiler_scope(name: str, on: bool):
+    """A profiler scope named ``name`` while tracing, else nothing. It is
+    a function-scope event: a user annotation (``record_function``) would
+    also lay a range over the step's kernels on the card's timeline,
+    which a reader of the card's busy time would count as busy."""
+    return (torch._C._profiler._RecordFunctionFast(name) if on
+            else _NO_SCOPE)
+
+
+def apply_wave(state: DocState, wave: torch.Tensor,
+               bases: Optional[torch.Tensor] = None,
+               traced: bool = False) -> DocState:
+    """One wave's step on one shard's state, returning the new state.
+    ``wave`` is a packed int16 ``[D, K, OP_FIELDS]`` wave with its int32
+    ``[D, 2]`` ``bases`` (``ops/apply.unpack_wave16`` wire format), or a
+    NOOP-padded int32 wave when ``bases`` is None, each op carrying its
+    deli msn in F_MSN. While ``traced``, profiler scopes name the stages:
+    ``applier.unpack``, ``applier.apply``, ``applier.compact``."""
+    if bases is not None:
+        with profiler_scope("applier.unpack", traced):
+            wave = unpack_wave16(wave, bases)
+    with profiler_scope("applier.apply", traced):
+        state = cuda_apply.apply_ops_batch(state, wave)
+    with profiler_scope("applier.compact", traced):
+        return compact_batch(state, wave_min_seq(wave))
 
 
 def shard_state(state: DocState, mesh: Mesh) -> list:
@@ -71,31 +106,24 @@ def _per_shard(x: Union[torch.Tensor, Shards], mesh: Mesh) -> list:
             for s, blk in enumerate(torch.chunk(x, n))]
 
 
-def _apply_local(state: DocState, wave: torch.Tensor):
-    state = cuda_apply.apply_ops_batch(state, wave)
-    state = compact_batch(state, wave_min_seq(wave))
-    applied = (wave[..., F_TYPE] != OP_NOOP).sum(dtype=torch.int32)
-    overflowed = state.overflow.sum(dtype=torch.int32)
-    return state, applied, overflowed
-
-
 def _run(mesh: Mesh, states, waves):
-    """Each shard's body in shard order; stats summed on the first
-    shard's device (the JAX ``psum`` over 'docs')."""
+    """``apply_wave`` on each shard in shard order, ``waves`` holding each
+    shard's arguments; stats summed on the first shard's device (the JAX
+    ``psum`` over 'docs'). A packed wave's F_TYPE is the op type as
+    unpacked, so the applied count reads it as it came."""
     if len(states) != mesh.shape["docs"] or len(waves) != len(states):
         raise ValueError(f"{len(states)} state shards and {len(waves)} "
                          f"wave shards for a {mesh.shape['docs']}-shard "
                          "mesh")
-    out, applied, overflowed = [], [], []
-    for state, wave in zip(states, waves):
-        state, a, o = _apply_local(state, wave)
-        out.append(state)
-        applied.append(a)
-        overflowed.append(o)
+    out = [apply_wave(state, *args) for state, args in zip(states, waves)]
     home = out[0].device
     stats = {
-        "applied_ops": torch.stack([a.to(home) for a in applied]).sum(),
-        "overflow_docs": torch.stack([o.to(home) for o in overflowed]).sum(),
+        "applied_ops": torch.stack([
+            (args[0][..., F_TYPE] != OP_NOOP).sum(dtype=torch.int32).to(home)
+            for args in waves]).sum(),
+        "overflow_docs": torch.stack([
+            state.overflow.sum(dtype=torch.int32).to(home)
+            for state in out]).sum(),
     }
     return out, stats
 
@@ -107,7 +135,7 @@ def make_sharded_step(mesh: Mesh):
     holds 0-dim int32 tensors ``applied_ops`` and ``overflow_docs``."""
 
     def step(states: Sequence[DocState], ops):
-        return _run(mesh, states, _per_shard(ops, mesh))
+        return _run(mesh, states, [(w,) for w in _per_shard(ops, mesh)])
 
     return step
 
@@ -123,11 +151,10 @@ def make_sharded_packed_step(mesh: Mesh):
     applies ONLY its own rows."""
 
     def packed_fn(states: Sequence[DocState], wave16, bases):
-        waves = [unpack_wave16(w, b) for w, b in
-                 zip(_per_shard(wave16, mesh), _per_shard(bases, mesh))]
-        return _run(mesh, states, waves)
+        return _run(mesh, states, list(zip(_per_shard(wave16, mesh),
+                                           _per_shard(bases, mesh))))
 
     def wide_fn(states: Sequence[DocState], wave):
-        return _run(mesh, states, _per_shard(wave, mesh))
+        return _run(mesh, states, [(w,) for w in _per_shard(wave, mesh)])
 
     return packed_fn, wide_fn

@@ -10,37 +10,39 @@ dimension) and applies every sequenced merge-tree op to it in waves of up
 to K ops per doc.
 
 The batch lives as a list of shard states, shard-major. Without a mesh
-there is one shard on ``device`` (the dense lane). With ``mesh=`` (a
-``parallel.mesh.Mesh``, or an int: that many shards on the cards, or on
-``[device] * n`` when ``device`` is named) the docs axis is cut into the
-mesh's docs shards, each on its own device (several may share one), and
-``DocPlacement`` routes a doc to a (shard, slot) whose global row is
-``shard * slots_per_shard + slot``. A mesh wave stages only its ACTIVE
-shards (``_stage_wave_mesh``): rows sorted by shard once, each active
-shard scattered into its own pinned buffers and copied to its device;
-inactive shards get a zero wave already resident there. The step
-(``parallel/sharded_apply.make_sharded_packed_step``) then runs every
-shard's unpack → B1 → zamboni on its device. Dropped from the JAX lane
-as TPU/XLA artifacts: ``NamedSharding`` assembly, donation, the Pallas
-tile rule (docs per shard % 8) and the staging thread pool (the copies
-are asynchronous already).
+there is one shard on ``device``. With ``mesh=`` (a ``parallel.mesh.Mesh``,
+or an int: that many shards on the cards, or on ``[device] * n`` when
+``device`` is named) the docs axis is cut into the mesh's docs shards, each
+on its own device (several may share one), and ``DocPlacement`` routes a
+doc to a (shard, slot) whose global row is ``shard * slots_per_shard +
+slot``. Every wave takes one dispatch lane, whatever the shard count.
 
 Ingest records each array boxcar (``ingest_array_batch``) and makes no
 array for it; a flush first packs every boxcar recorded since the last
 one into op rows in one columnar pass (``_pack``), one chunk a doc. The
 dict lane (``ingest_batch``) stages its rows as it goes, after the doc's
 recorded boxcars. A dispatch then has two halves. The host half
-(``_stage_wave``) packs the wave's rows (``ops/apply.pack_wave_rows``)
-into an int16 [D, K, 12] delta wave plus int32 [D, 2] bases, scatters
-them into one of two rotating sets of pinned host buffers and copies them
-to the card with ``non_blocking`` on the applier's own CUDA stream. The
-device half (``_execute_wave``) enqueues ``unpack_wave16`` →
-``ops/cuda_apply.apply_ops_batch`` (the hand-written CUDA kernel) →
-``compact_batch`` at ``wave_min_seq`` on the same stream and records a
-CUDA event after it. A wave whose deltas escape
-int16 ships at full int32 width instead and skips the unpack. With
+(``_stage_wave``, ``_stage_rows``) packs the wave's rows
+(``ops/apply.pack_wave_rows``) into int16 deltas plus int32 per-doc bases,
+and scatters each ACTIVE shard's rows into its [docs per shard, K, 12]
+block of one of two rotating sets of pinned host buffers, with its
+[docs per shard, 2] bases; each block is copied to its shard's device with
+``non_blocking`` on the applier's stream there. An inactive shard gets a
+zero block already resident on its device. With one shard that is one
+[D, K, 12] wave and [D, 2] bases, and nothing is sorted; with several the
+wave's docs are first sorted by shard, so each shard's rows are one slice
+(staged bytes scale with active shards, never with ``max_docs``). A wave
+whose deltas escape int16 (a giant doc, a huge window, the chaos
+``force_wide`` seam) ships at full int32 width instead, without bases.
+The device half (``_execute_wave``) runs ``parallel/sharded_apply.
+apply_wave`` (unpack → ``ops/cuda_apply.apply_ops_batch``, the
+hand-written CUDA kernel → ``compact_batch`` at ``wave_min_seq``) on each
+shard's stream and records a CUDA event after it on each. With
 ``overlap`` on (the default) nothing waits for the card, so the host
 stages wave N+1 while wave N runs; with it off every step is fenced.
+Dropped from the JAX mesh lane as TPU/XLA artifacts: ``NamedSharding``
+assembly, donation, the Pallas tile rule (docs per shard % 8) and the
+staging thread pool (the copies are asynchronous already).
 
 Fences, all on CUDA events recorded on the applier's streams (one stream
 and one event a step for each distinct device of the farm):
@@ -86,7 +88,7 @@ import json
 import os
 import threading
 import time
-from contextlib import ExitStack, nullcontext
+from contextlib import ExitStack
 from dataclasses import replace
 from typing import Optional, Union
 
@@ -97,7 +99,6 @@ from ..config import Config
 from ..device import resolve_device
 from ..mergetree.client import MergeTreeClient
 from ..obs import get_registry
-from ..ops import cuda_apply
 from ..ops.apply import (
     F_CLIENT,
     F_END,
@@ -116,10 +117,7 @@ from ..ops.apply import (
     OP_INSERT,
     OP_REMOVE,
     SYSTEM_CLIENT,
-    compact_batch,
     pack_wave_rows,
-    unpack_wave16,
-    wave_min_seq,
 )
 from ..ops.doc_state import (
     FIELDS,
@@ -135,7 +133,8 @@ from ..ops.doc_state import (
 from ..parallel.mesh import Mesh, make_mesh, virtual_devices
 from ..parallel.placement import DocPlacement
 from ..parallel.sharded_apply import (
-    make_sharded_packed_step,
+    apply_wave,
+    profiler_scope,
     shard_state,
     unshard_state,
 )
@@ -151,24 +150,13 @@ INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 _ANNOTATE = b"\x02"  # wire kind 2 (annotate) as an int8 kind's byte
 _ONE_JSON_TEXT = (int, str, bool)  # one JSON text a (type, value)
 
-# the farm's spans (utils/telemetry.SPANS); profiler scopes name
-# each wave's kernels in a profiler's trace
+# the farm's spans (utils/telemetry.SPANS)
 INGEST_SPAN = SPANS.name_id("applier.ingest")
 PACK_SPAN = SPANS.name_id("applier.pack")
 TAKE_SPAN = SPANS.name_id("applier.take")
 STAGE_SPAN = SPANS.name_id("applier.stage")
 EXECUTE_SPAN = SPANS.name_id("applier.execute")
 SYNC_SPAN = SPANS.name_id("applier.sync")
-_NO_SCOPE = nullcontext()
-
-
-def _scope(name: str, on: bool):
-    """A profiler scope named ``name`` while tracing, else nothing. It is
-    a function-scope event: a user annotation (``record_function``) would
-    also lay a range over the stage's kernels on the card's timeline,
-    which a reader of the card's busy time would count as busy."""
-    return (torch._C._profiler._RecordFunctionFast(name) if on
-            else _NO_SCOPE)
 
 
 _TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
@@ -181,13 +169,12 @@ class _StagedWave:
     wave. Holding one of these means the wave's ops have LEFT the staged
     dict but have not yet been issued to the device."""
 
-    __slots__ = ("lane", "wide", "arrays", "n", "nbytes", "flip")
+    __slots__ = ("wide", "arrays", "n", "nbytes", "flip")
 
-    def __init__(self, lane: str, wide: bool, arrays: tuple, n: int,
-                 nbytes: int, flip: int):
-        self.lane = lane        # "dense" | "mesh" (metrics label)
+    def __init__(self, wide: bool, arrays: list, n: int, nbytes: int,
+                 flip: int):
         self.wide = wide        # int32 escape lane (range / force_wide)
-        self.arrays = arrays    # device tensors (mesh: per-shard lists)
+        self.arrays = arrays    # each shard's device inputs, a tuple a shard
         self.n = n              # op rows in the wave
         self.nbytes = nbytes    # host bytes staged
         self.flip = flip        # which staging-buffer set holds the wave
@@ -244,6 +231,7 @@ class GpuDocumentApplier:
             raise ValueError("a Mesh names its own devices: pass mesh= or "
                              "device=, not both")
         self._mesh = mesh
+        self._lane = "dense" if mesh is None else "mesh"  # metrics label
         # the doc→shard routing table (partition-router role): shard s
         # owns the contiguous state rows [s * sps, (s + 1) * sps)
         if mesh is not None:
@@ -274,17 +262,15 @@ class GpuDocumentApplier:
             # the farm's state, one DocState a shard, shard-major
             self._shards = [DocState.empty(sps, self.max_slots, device=d)
                             for d in self._shard_devices]
-        # mesh-lane staging counters: per-wave staged bytes scale with
-        # ACTIVE shards, never with max_docs
+        # a mesh farm's staging counters: per-wave staged bytes scale
+        # with ACTIVE shards, never with max_docs
         self.mesh_waves = 0
         self.mesh_active_shards = 0
         self.mesh_staged_bytes = 0
-        self.mesh_stage_seconds = 0.0
-        if mesh is not None:
-            self._sharded_step = make_sharded_packed_step(mesh)
-            # per-device resident zero shards, reused every wave for
-            # INACTIVE shards (no host allocation, no copy)
-            self._zero_shards: dict = {}
+        # per-device resident zero blocks, reused every wave for INACTIVE
+        # shards (no host allocation, no copy); a farm of one shard has
+        # none
+        self._zero_shards: dict = {}
         self.arenas = [TextArena() for _ in range(self.max_docs)]
         self.prop_table = PropTable()  # shared across docs; ids are dense
         # (table, {(type, value): id}): see _intern_val
@@ -967,10 +953,9 @@ class GpuDocumentApplier:
     def _stage_wave(self, parts) -> Optional[_StagedWave]:
         """The HOST half of a dispatch: concat chunks → pack_wave_rows →
         scatter into the rotating pinned buffers → asynchronous copy on
-        the applier's stream. No compute is enqueued. In mesh mode the
-        scatter targets compact per-shard buffers for ACTIVE shards only
-        (``_stage_wave_mesh``), never an O(max_docs) host array. One
-        interval feeds ``stage_seconds`` and the ``applier.stage`` span."""
+        the applier's streams (``_stage_rows``). No compute is enqueued.
+        One interval feeds ``stage_seconds`` and the ``applier.stage``
+        span."""
         if parts is None:
             return None
         t0 = time.perf_counter()
@@ -998,13 +983,11 @@ class GpuDocumentApplier:
         self.stage_bytes += staged.nbytes
         if overlapped:
             self.stage_overlap_seconds += dt
-        if self._mesh is not None:
-            self.mesh_stage_seconds += dt
         reg = self._metrics()
-        reg.inc("applier.stage.seconds", dt, lane=staged.lane)
-        reg.inc("applier.stage.bytes", staged.nbytes, lane=staged.lane)
+        reg.inc("applier.stage.seconds", dt, lane=self._lane)
+        reg.inc("applier.stage.bytes", staged.nbytes, lane=self._lane)
         reg.set_gauge("applier.stage.overlap_ratio",
-                      self.stage_overlap_ratio(), lane=staged.lane)
+                      self.stage_overlap_ratio(), lane=self._lane)
         # applier/stage hop: wall-clock stamp at stage completion —
         # _execute_wave closes the stage→execute leg
         self._last_stage_wall = time.time()
@@ -1016,16 +999,23 @@ class GpuDocumentApplier:
         return staged
 
     def _stage_rows(self, parts) -> _StagedWave:
-        """Pack the wave's rows, scatter them into the next staging set
-        and enqueue their copies to the card."""
+        """Pack the wave's rows once, scatter each ACTIVE shard's rows
+        into its block of the next staging set and enqueue the block's
+        copy to the shard's device; an inactive shard gets a zero block
+        resident there. Rows route by the farm's own shard list, as
+        ``_locate`` does: a farm loaded without a mesh from a checkpoint
+        of several shards keeps one state."""
+        n_shards = len(self._shards)
+        sps = self.max_docs // n_shards
+        if n_shards > 1:
+            # each shard's docs, and so its rows, become one slice
+            parts = sorted(parts, key=lambda p: p[0] // sps)
         chunks = [ch for _slot, take, _n in parts for ch in take]
         flat = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
         n = len(flat)
         lens_a = np.array([count for _s, _t, count in parts])
         starts = np.cumsum(lens_a) - lens_a
         slots_a = np.array([slot for slot, _t, _n in parts], np.int64)
-        doc_idx = np.repeat(slots_a, lens_a)
-        pos_idx = np.arange(n, dtype=np.int64) - np.repeat(starts, lens_a)
         packed, seq_base, text_base = pack_wave_rows(flat, starts, lens_a)
 
         force_wide = (
@@ -1036,104 +1026,64 @@ class GpuDocumentApplier:
             # pipeline so the width flip never reorders around an
             # in-flight packed wave
             self._drain_device()
-        fits16 = (not force_wide and packed.min() >= INT16_MIN
-                  and packed.max() <= INT16_MAX)
+        wide = (force_wide or packed.min() < INT16_MIN
+                or packed.max() > INT16_MAX)
         self._rotate_stage_buffers()
-        shape = (self.max_docs, self.K, OP_FIELDS)
-        if self._mesh is not None:
-            staged = self._stage_wave_mesh(
-                flat, packed if fits16 else None, doc_idx, pos_idx,
-                slots_a, seq_base, text_base, n)
-        elif fits16:
-            wave16, wave16_np = self._stage_buffer(shape, np.int16)
-            wave16_np[doc_idx, pos_idx] = packed
-            bases, bases_np = self._stage_buffer((self.max_docs, 2), np.int32)
-            bases_np[slots_a, 0] = seq_base
-            bases_np[slots_a, 1] = text_base
-            # asynchronous copies on the applier's stream (current on
-            # this thread); on the CPU .to() returns the buffer itself
-            staged = _StagedWave(
-                "dense", False, (wave16.to(self.device, non_blocking=True),
-                                 bases.to(self.device, non_blocking=True)),
-                n, wave16_np.nbytes + bases_np.nbytes, self._stage_flip)
+        if n_shards == 1:
+            active, firsts = [0], [0]
         else:
-            # a field escaped int16 (giant doc, huge window): ship the
-            # wave at full int32 width
-            wide, wide_np = self._stage_buffer(shape, np.int32)
-            wide_np[doc_idx, pos_idx] = flat
-            staged = _StagedWave(
-                "dense", True, (wide.to(self.device, non_blocking=True),),
-                n, wide_np.nbytes, self._stage_flip)
-        return staged
-
-    def _stage_wave_mesh(self, flat, packed, doc_idx, pos_idx, slots_a,
-                         seq_base, text_base, n: int) -> _StagedWave:
-        """Mesh-lane stage: scatter the wave into per-ACTIVE-shard pinned
-        buffers and copy each to its shard's device, so host staging
-        cost and copied bytes are O(active shards · K), never
-        O(max_docs). The wave's rows are sorted by shard ONCE (each
-        shard's rows become a contiguous slice). ``packed=None`` ships
-        the int32 wide wave (int16 range escape / chaos force_wide)."""
-        sps = self.placement.slots_per_shard
-        K = self.K
-        row_shard, local_doc = self.placement.split_rows(doc_idx)
-        order = np.argsort(row_shard, kind="stable")
-        sorted_shard = row_shard[order]
-        active = np.unique(sorted_shard)
-        n_active = len(active)
-        lo = np.searchsorted(sorted_shard, active, side="left")
-        hi = np.searchsorted(sorted_shard, active, side="right")
-        ld, pi = local_doc[order], pos_idx[order]
-        wide = packed is None
-        dtype = np.int32 if wide else np.int16
-        rows = (flat if wide else packed)[order]
-        W, W_np = self._stage_buffer((n_active, sps, K, OP_FIELDS), dtype)
-        for i in range(n_active):
-            a, b = lo[i], hi[i]
-            W_np[i][ld[a:b], pi[a:b]] = rows[a:b]
-        arrays = (self._mesh_assemble(
-            {int(s): W[i] for i, s in enumerate(active)}, (K, OP_FIELDS),
-            dtype),)
-        staged_bytes = W_np.nbytes
+            active, firsts = np.unique(slots_a // sps, return_index=True)
+            active, firsts = active.tolist(), firsts.tolist()
+            slots_a = slots_a % sps  # rows local to their shard
+        doc_cuts = firsts + [len(parts)]
+        row_cuts = starts[firsts].tolist() + [n]
+        doc_idx = np.repeat(slots_a, lens_a)
+        pos_idx = np.arange(n, dtype=np.int64) - np.repeat(starts, lens_a)
+        # a field escaped int16: ship the wave at full int32 width
+        rows = flat if wide else packed
+        W, W_np = self._stage_buffer((len(active), sps, self.K, OP_FIELDS),
+                                     np.int32 if wide else np.int16)
+        nbytes = W_np.nbytes
         if not wide:
-            B, B_np = self._stage_buffer((n_active, sps, 2), np.int32)
-            doc_shard, local_slot = self.placement.split_rows(slots_a)
-            dorder = np.argsort(doc_shard, kind="stable")
-            sorted_doc_shard = doc_shard[dorder]
-            dlo = np.searchsorted(sorted_doc_shard, active, side="left")
-            dhi = np.searchsorted(sorted_doc_shard, active, side="right")
-            ls = local_slot[dorder]
-            sb, tb = seq_base[dorder], text_base[dorder]
-            for i in range(n_active):
-                da, db = dlo[i], dhi[i]
-                B_np[i][ls[da:db], 0] = sb[da:db]
-                B_np[i][ls[da:db], 1] = tb[da:db]
-            arrays += (self._mesh_assemble(
-                {int(s): B[i] for i, s in enumerate(active)}, (2,),
-                np.int32),)
-            staged_bytes += B_np.nbytes
-        self.mesh_waves += 1
-        self.mesh_active_shards += n_active
-        self.mesh_staged_bytes += staged_bytes
-        return _StagedWave("mesh", wide, arrays, n, staged_bytes,
-                           self._stage_flip)
+            B, B_np = self._stage_buffer((len(active), sps, 2), np.int32)
+            nbytes += B_np.nbytes
+        blocks = {}
+        for i, shard in enumerate(active):
+            r0, r1 = row_cuts[i], row_cuts[i + 1]
+            W_np[i][doc_idx[r0:r1], pos_idx[r0:r1]] = rows[r0:r1]
+            if wide:
+                blocks[shard] = (W[i],)
+                continue
+            d0, d1 = doc_cuts[i], doc_cuts[i + 1]
+            B_np[i][slots_a[d0:d1], 0] = seq_base[d0:d1]
+            B_np[i][slots_a[d0:d1], 1] = text_base[d0:d1]
+            blocks[shard] = (W[i], B[i])
+        # asynchronous copies on the applier's streams (current on this
+        # thread); on the CPU .to() returns the buffer itself
+        arrays = [tuple(b.to(d, non_blocking=True) for b in blocks[s])
+                  if s in blocks else self._zero_blocks(d, wide)
+                  for s, d in enumerate(self._shard_devices)]
+        if self._mesh is not None:
+            self.mesh_waves += 1
+            self.mesh_active_shards += len(active)
+            self.mesh_staged_bytes += nbytes
+        return _StagedWave(wide, arrays, n, nbytes, self._stage_flip)
 
-    def _mesh_assemble(self, shard_bufs: dict, tail: tuple,
-                       dtype) -> list:
-        """The per-shard device inputs of a mesh wave: each active shard's
-        host block copied (``non_blocking``) to its device, and for every
-        INACTIVE shard a zero block already resident on its device."""
-        key = (np.dtype(dtype).str,) + tail
-        zeros = self._zero_shards.get(key)
-        if zeros is None:
-            shape = (self.placement.slots_per_shard,) + tail
-            zeros = self._zero_shards[key] = {
-                d: torch.zeros(shape, dtype=_TORCH_DTYPE[np.dtype(dtype)],
-                               device=d)
-                for d in dict.fromkeys(self._shard_devices)}
-        return [zeros[d] if s not in shard_bufs
-                else shard_bufs[s].to(d, non_blocking=True)
-                for s, d in enumerate(self._shard_devices)]
+    def _zero_blocks(self, device, wide: bool) -> tuple:
+        """An inactive shard's inputs: zero blocks resident on its device,
+        made once for every device of the farm."""
+        tails = (((self.K, OP_FIELDS), torch.int32),) if wide else (
+            ((self.K, OP_FIELDS), torch.int16), ((2,), torch.int32))
+        out = []
+        for tail, dtype in tails:
+            zeros = self._zero_shards.get((tail, dtype))
+            if zeros is None:
+                shape = (self.max_docs // len(self._shards),) + tail
+                zeros = self._zero_shards[(tail, dtype)] = {
+                    d: torch.zeros(shape, dtype=dtype, device=d)
+                    for d in dict.fromkeys(self._shard_devices)}
+            out.append(zeros[device])
+        return tuple(out)
 
     def _execute_wave(self, staged: _StagedWave) -> int:
         """The DEVICE half: enqueue the step on the applier's streams
@@ -1147,7 +1097,7 @@ class GpuDocumentApplier:
         span = SPANS.begin(EXECUTE_SPAN, t0) if tracing() else None
         on = span is not None
         try:
-            with _scope("applier.execute", on):
+            with profiler_scope("applier.execute", on):
                 self._enqueue_step(staged, on)
         finally:
             t1 = time.perf_counter()
@@ -1156,7 +1106,7 @@ class GpuDocumentApplier:
         dt = t1 - t0
         self.exec_seconds += dt
         reg = self._metrics()
-        reg.inc("applier.exec.seconds", dt, lane=staged.lane)
+        reg.inc("applier.exec.seconds", dt, lane=self._lane)
         # applier/execute hop: the dispatch-split leg of the hop
         # breakdown, observed directly into the hop family and retained
         # as last_wave_hops for a host that forwards the stamps
@@ -1177,22 +1127,13 @@ class GpuDocumentApplier:
         return staged.n
 
     def _enqueue_step(self, staged: _StagedWave, traced: bool) -> None:
-        """Enqueue the wave's step and its completion events (a plain
-        marker per device); fence them at once with overlap off."""
+        """Enqueue each shard's step (``apply_wave``) and the wave's
+        completion events (a plain marker per device); fence them at once
+        with overlap off."""
         if staged.wide:
             self.wide_dispatches += 1
-        if staged.lane == "mesh":
-            packed_fn, wide_fn = self._sharded_step
-            fn = wide_fn if staged.wide else packed_fn
-            self._shards, _stats = fn(self._shards, *staged.arrays)
-        else:
-            with _scope("applier.unpack", traced):
-                wave = (staged.arrays[0] if staged.wide
-                        else unpack_wave16(*staged.arrays))
-            with _scope("applier.apply", traced):
-                state = cuda_apply.apply_ops_batch(self._shards[0], wave)
-            with _scope("applier.compact", traced):
-                self._shards = [compact_batch(state, wave_min_seq(wave))]
+        self._shards = [apply_wave(state, *args, traced=traced)
+                        for state, args in zip(self._shards, staged.arrays)]
         if self._streams:
             ends = []
             for stream in self._streams.values():

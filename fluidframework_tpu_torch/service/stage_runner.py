@@ -45,7 +45,9 @@ geometry (64 docs) unless given ``--max-docs``/``--max-slots``, prints
 ``READY`` and runs ``run_forever``. A host process may build the stage
 itself (``ApplierStage(log_dir, state_dir, **farm)``, the farm's whole
 geometry), run the same loop for a while (``run_forever(until=...)``)
-and then ``ApplierStage.drain_to`` given per-doc seqs.
+and then ``ApplierStage.drain_to`` given per-doc seqs. All three loops,
+and ``run_once``, tail the log by one step (``_tail_step``): discover
+new topics, poll, and drain what the poll found.
 
 Spans (``utils/telemetry.SPANS``, while ``tracing()``): ``stage.poll``
 (the tail's poll), ``stage.drain`` (delivery into the stage's consumers,
@@ -129,6 +131,7 @@ class _StageHostBase:
         # never owned)
         self.partition = partition
         self._known: set[str] = set()
+        self._discovered_at = 0.0
         self._last_checkpoint = time.monotonic()
         self.checkpoint_every_s = 1.0
 
@@ -197,28 +200,45 @@ class _StageHostBase:
                 return True
         return False
 
+    def _tail_step(self, discover_every: float = 0.25,
+                   drain: bool = True) -> bool:
+        """One step of the stage's tail: discover new topics (at most
+        every ``discover_every`` s: listdir is not free at 2 ms), poll,
+        and drain if the poll moved anything and ``drain`` holds.
+        Returns whether the poll found new records."""
+        now = time.monotonic()
+        if now - self._discovered_at >= discover_every:
+            self._discovered_at = now
+            self.discover()
+        moved = _spanned(POLL_SPAN, self.shared.poll)
+        if moved and drain:
+            _spanned(DRAIN_SPAN, self.shared.drain)
+        return moved
+
     def run_forever(self, until: Optional[Callable[[], bool]] = None) -> None:
-        """The stage's loop: discover every 0.25 s, poll, drain,
-        checkpoint every ``checkpoint_every_s``, flush the state log,
-        sleep ``POLL_INTERVAL_S`` when idle. Runs until ``until()`` is
-        true, checked once an iteration (forever without it)."""
-        last_discover = 0.0
+        """The stage's loop: the tail step, checkpoint every
+        ``checkpoint_every_s``, flush the state log, sleep
+        ``POLL_INTERVAL_S`` when idle; the control file is read as often
+        as topics are discovered, and while it pauses the stage, records
+        are stepped one by one instead of drained. Runs until ``until()``
+        is true, checked once an iteration (forever without it)."""
+        self._discovered_at = last_ctl = 0.0
         self._ctl = {"mode": "run"}
         self._ctl_mtime = None
         self._steps_done = 0
         while until is None or not until():
             now = time.monotonic()
-            if now - last_discover >= 0.25:  # listdir is not free at 2ms
-                last_discover = now
-                self.discover()
+            if now - last_ctl >= 0.25:
+                last_ctl = now
                 self._read_ctl()
-            moved = _spanned(POLL_SPAN, self.shared.poll)
-            if self._ctl.get("mode") != "pause":
+            paused = self._ctl.get("mode") == "pause"
+            moved = self._tail_step(drain=not paused)
+            if not paused:
                 # leaving (or never entering) a pause episode resets the
                 # step ledger: each pause session's budget counts from 0,
                 # not from the lifetime total of earlier sessions
                 self._steps_done = 0
-            if self._ctl.get("mode") == "pause":
+            else:
                 self._read_ctl()
                 budget = int(self._ctl.get("steps", 0))
                 stepped = False
@@ -230,8 +250,6 @@ class _StageHostBase:
                     self.state.flush()
                 time.sleep(0.01)
                 continue
-            if moved:
-                _spanned(DRAIN_SPAN, self.shared.drain)
             now = time.monotonic()
             if now - self._last_checkpoint >= self.checkpoint_every_s:
                 self._last_checkpoint = now
@@ -246,10 +264,7 @@ class _StageHostBase:
         chaos soak, a test) step a stage in-process and catch a
         SimulatedCrash exactly at the armed window. Returns whether the
         poll found new records."""
-        self.discover()
-        moved = _spanned(POLL_SPAN, self.shared.poll)
-        if moved:
-            _spanned(DRAIN_SPAN, self.shared.drain)
+        moved = self._tail_step(discover_every=0.0)
         _spanned(CHECKPOINT_SPAN, self.checkpoint)
         self.state.flush()
         return moved
@@ -430,14 +445,9 @@ class ApplierStage(_StageHostBase):
         log. Raises ``TimeoutError`` after ``timeout`` seconds."""
         deadline = time.monotonic() + timeout
         topics = {f"deltas/{t}/{d}": seq for (t, d), seq in seqs.items()}
-        last_discover = 0.0
+        self._discovered_at = 0.0
         while True:
-            now = time.monotonic()
-            if now - last_discover >= 0.25:  # as run_forever: listdir
-                last_discover = now          # is not free
-                self.discover()
-            if _spanned(POLL_SPAN, self.shared.poll):
-                _spanned(DRAIN_SPAN, self.shared.drain)
+            self._tail_step()
             behind = [t for t, seq in topics.items()
                       if self.consumed_seq(t) < seq]
             if not behind:
@@ -493,8 +503,7 @@ class ApplierStage(_StageHostBase):
         # a restart resumes from the OLD offsets and replays the window
         # (ingest skips by sequence number)
         self._fault("stage.pre_checkpoint")
-        self.applier.flush()
-        self.applier.finalize()
+        # the save finalizes first: it flushes and fences the farm
         self.last_save = save = save_applier_checkpoint(self.applier,
                                                         self._ckpt_path)
         if tracing():
@@ -509,7 +518,7 @@ class ApplierStage(_StageHostBase):
         # thread the hoptail across the process boundary: the applier's
         # last stage/execute wall stamps ride the "applied" record so
         # the core can fold stage_to_execute into its own registry
-        wave_hops = getattr(self.applier, "last_wave_hops", None)
+        wave_hops = self.applier.last_wave_hops
         if wave_hops is not None:  # consume: one fold per wave
             self.applier.last_wave_hops = None
         saved = self._saved_offsets

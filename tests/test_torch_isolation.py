@@ -320,13 +320,13 @@ def test_mesh_step_refuses_cpu_kernel_launch():
     """On the card's path the mesh step launches B1 or raises: a CUDA
     state with CPU ops never falls back to the plain version."""
     from fluidframework_tpu_torch.parallel import make_mesh
-    from fluidframework_tpu_torch.parallel.sharded_apply import _apply_local
+    from fluidframework_tpu_torch.parallel.sharded_apply import apply_wave
 
     state = DocState.empty(2, 8, device="cpu")
     state.length = state.length.to("meta")
     before = cuda_apply.LAUNCHES
     with pytest.raises(ValueError):
-        _apply_local(state, torch.zeros((2, 4, 12), dtype=torch.int32))
+        apply_wave(state, torch.zeros((2, 4, 12), dtype=torch.int32))
     assert cuda_apply.LAUNCHES == before
     assert make_mesh(devices=["cpu"]).shape == {"docs": 1, "seg": 1}
 

@@ -3,7 +3,8 @@
 Twins of ``tests/test_mesh_applier.py`` (1/2/4/8-shard fuzz, overflow
 escalation, the force_wide lane, async with min-wave, staging bytes,
 buffers flat over 100 waves, checkpoint re-sharding) and of
-``tests/test_tpu_applier.py::test_applier_on_virtual_mesh``. The port's
+``tests/test_tpu_applier.py::test_applier_on_virtual_mesh``, and the
+farm of one shard with and without a mesh on one stream, both widths. The port's
 shards sit on ``["cpu"] * n`` (a device list that repeats one device);
 the JAX package's on the forced virtual CPU devices of
 ``tests/conftest.py``. Each case feeds both packages the same seeded
@@ -11,7 +12,8 @@ soups and holds them exactly: every doc's text, every state field row for
 row, the placement map, and the counters ``dispatches``, ``mesh_waves``,
 ``mesh_active_shards`` and ``mesh_staged_bytes``. The soups are built once
 for the module. The mesh construction's refusals and the sharded steps of
-``parallel/sharded_apply.py`` are tested here too.
+``parallel/sharded_apply.py`` are tested here too, its one wave step
+against the plain chain.
 """
 
 import types
@@ -33,7 +35,13 @@ from fluidframework_tpu.service.tpu_applier import (
 from fluidframework_tpu.service.tpu_applier import (
     save_applier_checkpoint as jax_save,
 )
-from fluidframework_tpu_torch.ops.apply import OP_FIELDS
+from fluidframework_tpu_torch.ops.apply import (
+    OP_FIELDS,
+    apply_ops_batch_ref,
+    compact_batch,
+    pack_wave_rows,
+    wave_min_seq,
+)
 from fluidframework_tpu_torch.ops.doc_state import FIELDS, DocState
 from fluidframework_tpu_torch.parallel import (
     make_mesh,
@@ -42,6 +50,7 @@ from fluidframework_tpu_torch.parallel import (
 )
 from fluidframework_tpu_torch.parallel.mesh import Mesh, virtual_devices
 from fluidframework_tpu_torch.parallel.sharded_apply import (
+    apply_wave,
     shard_state,
     unshard_state,
 )
@@ -153,6 +162,74 @@ def test_mesh_force_wide_lane_matches_jax(soup):
     _assert_same(*apps, texts)
     assert apps[1].wide_dispatches == apps[1].dispatches > 0
     assert apps[1].mesh_waves == apps[1].dispatches
+
+
+@pytest.mark.parametrize("mesh", [None, 1])
+def test_one_shard_farm_matches_jax_both_widths(soup, mesh):
+    """A farm of one shard stages and steps down the one dispatch lane
+    with or without a mesh: on one stream whose every third wave the
+    force_wide seam ships at int32 width, it ends on the JAX applier's
+    texts and state rows, with the same waves, the forced ones wide."""
+    jmsgs, pmsgs, texts = soup[0]
+    apps, forced = [], []
+    for cls, msgs, m in (
+            (TpuDocumentApplier, jmsgs,
+             None if mesh is None else jax_make_mesh(1, seg_shards=1)),
+            (GpuDocumentApplier, pmsgs,
+             None if mesh is None else _port_mesh(1))):
+        waves = []
+
+        def plane(point, waves=waves, **kw):
+            if point != "applier.dispatch":
+                return None
+            waves.append(kw["ops"])
+            return "force_wide" if len(waves) % 3 == 0 else None
+
+        app = (cls(mesh=m, **GEO) if m is not None
+               else cls(**GEO, **({} if cls is TpuDocumentApplier
+                                  else {"device": "cpu"})))
+        app.fault_plane = plane
+        _feed_all(app, msgs)
+        apps.append(app)
+        forced.append(waves)
+    jax_app, port_app = apps
+    _assert_same(jax_app, port_app, texts, counters=False)
+    assert forced[0] == forced[1]
+    assert port_app.dispatches == jax_app.dispatches == len(forced[1])
+    assert port_app.wide_dispatches == len(forced[1]) // 3 > 0
+    assert port_app.mesh_waves == (0 if mesh is None
+                                   else port_app.dispatches)
+    assert port_app.host_escalations == 0
+
+
+@pytest.mark.parametrize("width", ["packed", "wide"])
+def test_apply_wave_matches_plain_chain(width):
+    """``apply_wave`` on a packed wave with its bases, or on the int32
+    wave, ends where ``apply_ops_batch_ref`` then ``compact_batch`` at
+    ``wave_min_seq`` end on the int32 wave, every field."""
+    D, S, K = 8, 64, 6
+    stream = generate_batch_ops(np.random.default_rng(9), D, 2 * K,
+                                remove_fraction=0.3, annotate_fraction=0.2,
+                                max_insert=5)
+    w1 = torch.from_numpy(stream[:, :K].copy())
+    w2 = torch.from_numpy(stream[:, K:].copy())
+    state = apply_wave(DocState.empty(D, S, device="cpu"), w1)
+    want = compact_batch(apply_ops_batch_ref(state, w2), wave_min_seq(w2))
+    if width == "packed":
+        packed, sb, tb = pack_wave_rows(w2.numpy().reshape(-1, OP_FIELDS),
+                                        np.arange(D) * K, np.full(D, K))
+        assert np.abs(packed).max() < 1 << 15
+        got = apply_wave(state,
+                         torch.from_numpy(packed.reshape(D, K, OP_FIELDS)
+                                          .astype(np.int16)),
+                         torch.from_numpy(np.stack([sb, tb], 1)
+                                          .astype(np.int32)))
+    else:
+        got = apply_wave(state, w2)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      getattr(want, f).numpy(), err_msg=f)
+    assert int(got.count.sum()) > 0
 
 
 @pytest.mark.parametrize("seed", SEEDS)
