@@ -37,6 +37,8 @@ FRAME_RING = 64
 MAX_CONNS = 256
 #: Leading body bytes kept in a frame digest.
 DIGEST_HEAD = 12
+#: The fields of an admission event, in the order ``event`` writes them.
+_ADMISSION_FIELDS = ("ts", "tier", "event", "doc", "client", "n")
 
 
 class FlightRecorder:
@@ -60,6 +62,12 @@ class FlightRecorder:
         rec = {"ts": time.time(), "tier": tier, "event": kind}
         rec.update(fields)
         self._events.append(rec)
+
+    def admission(self, kind: str, doc: str, client: str, n: int) -> None:
+        """Record one boxcar admission: the event ``event("deli", kind,
+        doc=doc, client=client, n=n)`` records, kept as a tuple on the
+        submit path and expanded by ``dump``."""
+        self._events.append((time.time(), "deli", kind, doc, client, n))
 
     def frame(self, conn: str, direction: str, body: bytes) -> None:
         """Record one frame digest on a connection's ring.
@@ -103,6 +111,8 @@ class FlightRecorder:
             head.update(fields)
             f.write(json.dumps(head, default=str) + "\n")
             for rec in events:
+                if type(rec) is tuple:
+                    rec = dict(zip(_ADMISSION_FIELDS, rec))
                 f.write(json.dumps({"kind": "event", **rec}, default=str)
                         + "\n")
             for conn, ring in frames:

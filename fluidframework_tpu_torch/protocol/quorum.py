@@ -87,6 +87,8 @@ class Quorum:
 
     def update_minimum_sequence_number(self, min_seq: int, current_seq: int) -> None:
         """Commit/reject every pending proposal the window has passed."""
+        if not self.proposals:
+            return
         done = []
         for seq, prop in sorted(self.proposals.items()):
             if seq > min_seq:

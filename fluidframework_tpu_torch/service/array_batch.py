@@ -22,6 +22,7 @@ Op kinds (matching the merge-tree wire ops):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Optional
 
 import numpy as np
@@ -119,15 +120,18 @@ class SequencedArrayBatch:
     timestamp: float
     _materialized: Optional[list] = field(default=None, repr=False)
 
-    @property
+    # a batch is not changed once made, and every subscriber of a
+    # broadcast reads these: each is computed once, then an attribute
+
+    @cached_property
     def n(self) -> int:
         return self.boxcar.n
 
-    @property
+    @cached_property
     def last_seq(self) -> int:
         return self.base_seq + self.n - 1
 
-    @property
+    @cached_property
     def last_msn(self) -> int:
         return int(self.msns[-1])
 

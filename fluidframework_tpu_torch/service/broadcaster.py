@@ -11,7 +11,6 @@ in production; in-proc PubSub here, memory-orderer/src/pubsub.ts:39).
 from __future__ import annotations
 
 import time
-from collections import defaultdict
 from typing import Callable
 
 from ..protocol.messages import TraceHop
@@ -40,25 +39,31 @@ class PubSub:
     them."""
 
     def __init__(self):
-        self._subs: dict[str, list[Callable]] = defaultdict(list)
-        # topic → whether each callback in _subs is a session's
-        self._sessions: dict[str, list[bool]] = defaultdict(list)
+        # topic → its callbacks, and whether each is a session's. Both
+        # lists are replaced, never changed in place, so a publish walks
+        # the lists it found without copying them: a callback that
+        # subscribes or unsubscribes takes effect from the next publish
+        self._subs: dict[str, list[Callable]] = {}
+        self._sessions: dict[str, list[bool]] = {}
 
     def subscribe(self, topic: str, cb: Callable) -> None:
-        self._subs[topic].append(cb)
-        self._sessions[topic].append(span_of(cb) == SESSION)
+        self._subs[topic] = self._subs.get(topic, []) + [cb]
+        self._sessions[topic] = (self._sessions.get(topic, [])
+                                 + [span_of(cb) == SESSION])
 
     def unsubscribe(self, topic: str, cb: Callable) -> None:
         subs = self._subs.get(topic, [])
         if cb in subs:
-            del self._sessions[topic][subs.index(cb)]
-            subs.remove(cb)
+            i = subs.index(cb)
+            self._subs[topic] = subs[:i] + subs[i + 1:]
+            sessions = self._sessions[topic]
+            self._sessions[topic] = sessions[:i] + sessions[i + 1:]
 
     def publish(self, topic: str, *args) -> None:
         if tracing():
             self._publish_traced(topic, args)
             return
-        for cb in list(self._subs.get(topic, [])):
+        for cb in self._subs.get(topic, ()):
             cb(*args)
 
     def _publish_traced(self, topic: str, args: tuple) -> None:
@@ -68,8 +73,8 @@ class PubSub:
         running = False  # whether it runs now
         calls = 0
         try:
-            for cb, session in list(zip(self._subs.get(topic, []),
-                                        self._sessions.get(topic, []))):
+            for cb, session in zip(self._subs.get(topic, ()),
+                                   self._sessions.get(topic, ())):
                 if session and not running:
                     if frame is None:
                         # None: folded into a running session span
@@ -108,6 +113,9 @@ class BroadcasterLambda:
 
     def __init__(self, pubsub: PubSub):
         self._pubsub = pubsub
+        # (tenant, doc, topic) of the last envelope: a pipeline's
+        # broadcaster serves one doc, so its topic is built once
+        self._last = (None, None, None)
 
     @staticmethod
     def topic(tenant_id: str, document_id: str) -> str:
@@ -123,7 +131,12 @@ class BroadcasterLambda:
         if batch is None:
             batch = [envelope["message"]]
         self._stamp_fanout(batch)
-        topic = self.topic(envelope["tenant_id"], envelope["document_id"])
+        tenant_id = envelope["tenant_id"]
+        document_id = envelope["document_id"]
+        last_tenant, last_doc, topic = self._last
+        if tenant_id != last_tenant or document_id != last_doc:
+            topic = self.topic(tenant_id, document_id)
+            self._last = (tenant_id, document_id, topic)
         if self.fault_plane is not None:
             directive = self.fault_plane("broadcast.publish", topic=topic)
             if directive == "drop":
@@ -147,15 +160,15 @@ class BroadcasterLambda:
         list already exists (the client's sampling decision rides the
         presence of traces). Unsampled traffic takes one branch here.
         """
-        hops = getattr(getattr(batch, "boxcar", None), "hops", None)
-        if hops is not None:
-            hops.append((HOP_FANOUT, time.time()))
+        if type(batch) is not list:  # a SequencedArrayBatch
+            hops = batch.boxcar.hops
+            if hops is not None:
+                hops.append((HOP_FANOUT, time.time()))
             return
-        if isinstance(batch, list):
-            svc, act = HOP_SERVICE_ACTION[HOP_FANOUT]
-            for msg in batch:
-                traces = getattr(msg, "traces", None)
-                if traces:
-                    traces.append(
-                        TraceHop(service=svc, action=act,
-                                 timestamp=time.time()))
+        svc, act = HOP_SERVICE_ACTION[HOP_FANOUT]
+        for msg in batch:
+            traces = getattr(msg, "traces", None)
+            if traces:
+                traces.append(
+                    TraceHop(service=svc, action=act,
+                             timestamp=time.time()))

@@ -31,7 +31,9 @@ Two lanes share the same per-document state:
 from __future__ import annotations
 
 import time
+from bisect import bisect_left
 from dataclasses import dataclass, field
+from operator import attrgetter
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -44,11 +46,19 @@ from ..protocol.messages import (
     SequencedDocumentMessage,
     TraceHop,
 )
-from ..utils.telemetry import HOP_DELI
+from ..utils.telemetry import HOP_DELI, SPANS, tracing
 from .array_batch import ArrayBoxcar, SequencedArrayBatch
 from .core import QueuedMessage
 
 DEFAULT_CLIENT_TIMEOUT = 5 * 60.0  # ref: ClientSequenceTimeout, 5 minutes
+
+#: array boxcars ticketed on the fast lane / sent to the scalar lane,
+#: counted into ``SPANS`` while tracing (``boxcars_fast`` and
+#: ``boxcars_fallback`` count every lane, always)
+COUNT_ARRAY_FAST = "deli.array.fast"
+COUNT_ARRAY_FALLBACK = "deli.array.fallback"
+
+_REF_SEQ = attrgetter("reference_sequence_number")
 
 
 @dataclass
@@ -245,10 +255,10 @@ class DeliLambda:
                 return
         self.log_offset = message.offset
         raw = message.value
-        if type(raw) is RawBoxcar:
-            self._ticket_boxcar(raw)
-        elif type(raw) is ArrayBoxcar:
+        if type(raw) is ArrayBoxcar:
             self._ticket_array_boxcar(raw)
+        elif type(raw) is RawBoxcar:
+            self._ticket_boxcar(raw)
         else:
             self._ticket(raw)
 
@@ -481,54 +491,67 @@ class DeliLambda:
                 self._send(msg)
 
     def _ticket_array_boxcar(self, box) -> None:
-        """Ticket an ArrayBoxcar (service/array_batch.py) in one
-        vectorized pass — the array lane of the boxcar fast path.
+        """Ticket an ArrayBoxcar (service/array_batch.py) in one pass
+        over plain integers — the array lane of the boxcar fast path.
 
         Same preconditions as _ticket_boxcar (joined client, consecutive
         clientSeqs, non-decreasing refSeqs ≥ stored — under which no
-        nack can fire and the msn rule collapses to one minimum); a miss
-        falls back to the scalar lane on the EQUIVALENT dict boxcar.
-        Emits a SequencedArrayBatch carrying seq range + per-op msns; no
-        per-op message objects are built (cold consumers materialize)."""
+        nack can fire and the msn rule collapses to one minimum), each
+        checked on every op; a miss falls back to the scalar lane on the
+        EQUIVALENT dict boxcar. Emits a SequencedArrayBatch carrying seq
+        range + per-op msns; no per-op message objects are built (cold
+        consumers materialize).
+
+        The msn floor is taken AFTER this client's refSeq moves to the
+        boxcar's last: ``floor = min(others_min, rs[-1])``, so a floor
+        below ``rs[-1]`` is the other clients' minimum and caps the
+        msns from the first refSeq that reaches it (refSeqs are sorted),
+        and a floor equal to it leaves every msn at its own refSeq."""
         client = self.clients.get(box.client_id)
         n = box.n
         if n == 0 or client is None:
-            self._fallback_boxcar(box.to_raw_boxcar())
+            self._fallback_array_boxcar(box)
             return
-        cseq, rseq = box.cseq, box.rseq
+        cs = box.cseq.tolist()
+        rs = box.rseq.tolist()
+        first_c = client.client_sequence_number + 1
+        last_r = rs[-1]
         if not (
-            int(cseq[0]) == client.client_sequence_number + 1
-            and int(rseq[0]) >= client.reference_sequence_number
-            and (np.diff(cseq) == 1).all()
-            and (np.diff(rseq) >= 0).all()
+            rs[0] >= client.reference_sequence_number
+            and cs == list(range(first_c, first_c + n))
+            and (rs.count(last_r) == n or rs == sorted(rs))
         ):
-            self._fallback_boxcar(box.to_raw_boxcar())
+            self._fallback_array_boxcar(box)
             return
         now = box.timestamp or self._clock()
-        others_min = min(
-            (c.reference_sequence_number
-             for c in self.clients.values() if c is not client),
-            default=None,
-        )
-        rs = rseq.astype(np.int64)
-        msns = rs if others_min is None else np.minimum(rs, others_min)
+        client.client_sequence_number = first_c + n - 1
+        client.reference_sequence_number = last_r
+        client.last_update = now
+        floor = min(map(_REF_SEQ, self.clients.values()))
+        msns = box.rseq.astype(np.int64)
+        if floor < last_r:
+            msns[bisect_left(rs, floor):] = floor
         base_seq = self.sequence_number + 1
         self.sequence_number += n
-        client.client_sequence_number = int(cseq[-1])
-        client.reference_sequence_number = int(rseq[-1])
-        client.last_update = now
         self.boxcars_fast += 1
+        if tracing():
+            SPANS.count(COUNT_ARRAY_FAST)
         if box.hops is not None:
             # sampled boxcar: the stamp timestamp IS deli's ticket time
             # (matches what scan_ops reports as deli_ts for cols frames)
             box.hops.append((HOP_DELI, now))
-        batch = SequencedArrayBatch(boxcar=box, base_seq=base_seq,
-                                    msns=msns, timestamp=now)
+        batch = SequencedArrayBatch(box, base_seq, msns, now)
         if self._send_batch is not None:
             self._send_batch(batch)
         else:
             for msg in batch.messages():
                 self._send(msg)
+
+    def _fallback_array_boxcar(self, box) -> None:
+        """Scalar lane for an ArrayBoxcar that misses a precondition."""
+        if tracing():
+            SPANS.count(COUNT_ARRAY_FALLBACK)
+        self._fallback_boxcar(box.to_raw_boxcar())
 
     def _fallback_boxcar(self, box: RawBoxcar) -> None:
         """Scalar lane for boxcars that miss a fast-path precondition."""

@@ -41,7 +41,9 @@ class OrderedLogBase:
     fault_plane = None
 
     def __init__(self):
-        # topic → [(handler, [position], span id or None)]
+        # topic → [(handler, [position], span id or None)]; a topic's
+        # list is replaced, never changed in place, so a drain walks the
+        # list it found without copying it
         self._subs: dict[str, list[tuple[Handler, list[int],
                                          Optional[int]]]] = {}
         self._order: list[str] = []
@@ -114,8 +116,8 @@ class OrderedLogBase:
 
     def subscribe(self, topic: str, handler: Handler, from_offset: int = 0) -> None:
         self.create_topic(topic)
-        self._subs[topic].append(
-            (handler, [from_offset], handler_span(handler)))
+        self._subs[topic] = self._subs[topic] + [
+            (handler, [from_offset], handler_span(handler))]
         self._dirty[topic] = None  # may need catch-up delivery
 
     def unsubscribe(self, topic: str, handler: Handler) -> None:
@@ -144,30 +146,40 @@ class OrderedLogBase:
         runs to a fixed point. Returns the number of deliveries made.
         While ``tracing()``, each delivery to a subscriber that names a
         span runs in it.
+
+        A topic's visit delivers to the handlers subscribed when it
+        began, in subscription order, each up to the stored length when
+        its turn comes: the length is read once a visit and again only
+        after something re-dirtied the topic (an append, a subscribe, a
+        rewind). Handlers at the same record share one message.
         """
         traced = tracing()
+        dirty = self._dirty
+        subs_of = self._subs.get
+        length = self._stored_length
+        load = self._load
         delivered = 0
-        while self._dirty:
-            topic = next(iter(self._dirty))
-            del self._dirty[topic]
+        while dirty:
+            topic = next(iter(dirty))
+            del dirty[topic]
+            subs = subs_of(topic)
+            if not subs:
+                continue
+            msg = None
             # handlers may subscribe/unsubscribe and append (re-dirtying
             # this or other topics); the outer loop reaches the fixed point
             try:
-                for handler, pos, span in list(self._subs.get(topic, [])):
+                n = length(topic)
+                for handler, pos, span in subs:
                     if not traced:
                         span = None
-                    # snapshot the length once per handler pass: for the
-                    # durable log it is a ctypes call, and re-querying
-                    # per record made it ~4 calls/record on the hot
-                    # path. Records a handler appends to THIS topic
-                    # re-dirty it, so the fixed-point loop still
-                    # delivers them.
-                    n = self._stored_length(topic)
                     while pos[0] < n:
-                        msg = QueuedMessage(
-                            offset=pos[0], topic=topic, partition=0,
-                            value=self._load(topic, pos[0]))
-                        pos[0] += 1
+                        offset = pos[0]
+                        value = load(topic, offset)
+                        if (msg is None or msg.offset != offset
+                                or msg.value is not value):
+                            msg = QueuedMessage(offset, topic, 0, value)
+                        pos[0] = offset + 1
                         if span is None:
                             handler(msg)
                         else:
@@ -178,10 +190,12 @@ class OrderedLogBase:
                                 if frame is not None:
                                     SPANS.end(frame)
                         delivered += 1
+                    if topic in dirty:
+                        n = length(topic)
             except Exception:
                 # a raising handler must not strand the topic's remaining
                 # records: re-dirty so the next drain() retries
-                self._dirty[topic] = None
+                dirty[topic] = None
                 raise
         return delivered
 
@@ -216,7 +230,9 @@ class LocalLog(OrderedLogBase):
         self._topics: dict[str, list[Any]] = {}
 
     def _store(self, topic: str, value: Any) -> int:
-        records = self._topics.setdefault(topic, [])
+        records = self._topics.get(topic)
+        if records is None:
+            records = self._topics[topic] = []
         records.append(value)
         return len(records) - 1
 
@@ -224,4 +240,5 @@ class LocalLog(OrderedLogBase):
         return self._topics[topic][offset]
 
     def _stored_length(self, topic: str) -> int:
-        return len(self._topics.get(topic, []))
+        records = self._topics.get(topic)
+        return 0 if records is None else len(records)

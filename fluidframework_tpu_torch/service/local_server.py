@@ -605,8 +605,8 @@ class LocalServer:
                 return
             orderer = self._get_orderer(conn.tenant_id, conn.document_id)
             now = self._clock()
-            self._flight.event("deli", "boxcar", doc=conn.document_id,
-                               client=conn.client_id, n=len(messages))
+            self._flight.admission("boxcar", conn.document_id,
+                                   conn.client_id, len(messages))
             # the whole submitted batch rides the raw log as ONE boxcar
             # record (ref: IBoxcarMessage); deli's fast lane tickets it in
             # one pass
@@ -642,8 +642,8 @@ class LocalServer:
             boxcar.document_id = conn.document_id
             boxcar.client_id = conn.client_id
             boxcar.timestamp = self._clock()
-            self._flight.event("deli", "aboxcar", doc=conn.document_id,
-                               client=conn.client_id, n=boxcar.n)
+            self._flight.admission("aboxcar", conn.document_id,
+                                   conn.client_id, boxcar.n)
             orderer = self._get_orderer(conn.tenant_id, conn.document_id)
             orderer.order(boxcar)
             self._maybe_drain()

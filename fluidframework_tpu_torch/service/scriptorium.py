@@ -52,6 +52,11 @@ class ScriptoriumLambda:
 
     def __init__(self, db: InMemoryDb):
         self._db = db
+        # (tenant, doc, its log document) of the last handled envelope:
+        # a pipeline's scriptorium sees one doc, so the collection lookup
+        # is made once, not once a boxcar (the log document is never
+        # replaced, only mutated in place)
+        self._last = (None, None, None)
 
     @staticmethod
     def collection(tenant_id: str, document_id: str) -> str:
@@ -69,8 +74,12 @@ class ScriptoriumLambda:
 
     def handler(self, message: QueuedMessage) -> None:
         envelope = message.value
-        name = self.collection(envelope["tenant_id"], envelope["document_id"])
-        doc = self._doc(name)
+        tenant_id = envelope["tenant_id"]
+        document_id = envelope["document_id"]
+        last_tenant, last_doc, doc = self._last
+        if tenant_id != last_tenant or document_id != last_doc:
+            doc = self._doc(self.collection(tenant_id, document_id))
+            self._last = (tenant_id, document_id, doc)
         log = doc["messages"]
         # dense invariant: log[i] holds seq base+i+1, so the last stored
         # seq is positional (entries may be per-op messages OR a shared

@@ -13,6 +13,8 @@ and fallback counters are equal exactly. Tolerance: exact.
 from __future__ import annotations
 
 import random
+
+import pytest
 from types import SimpleNamespace
 
 import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
@@ -236,3 +238,155 @@ def _checkpoint_restart(p):
 
 def test_boxcar_checkpoint_restart_equivalence():
     _both(_checkpoint_restart)
+
+
+# ------------------------------------------------------ the array lane
+# An ArrayBoxcar (``service/array_batch.py``) ticketed by the array lane
+# against the same ops ticketed one by one by the scalar lane: the
+# sequenced streams (with every op's msn), the nacks and the checkpoint's
+# clients and sequence number are equal; against the JAX package's array
+# lane, the streams, the per-op msns, the nacks, the whole checkpoint and
+# the fast and fallback counts are equal. The port's counters
+# ``deli.array.fast`` and ``deli.array.fallback`` (recorded while
+# tracing) agree with ``boxcars_fast`` and ``boxcars_fallback``.
+
+
+def abox(p, client_id, cseqs, rseqs, ts=1001.0):
+    import numpy as np
+
+    n = len(cseqs)
+    return p.ArrayBoxcar(
+        tenant_id="t", document_id="d", client_id=client_id,
+        ds_id="default", channel_id="text",
+        kind=np.zeros(n, np.int8), a=np.arange(n, dtype=np.int32),
+        b=np.zeros(n, np.int32), cseq=np.asarray(cseqs, np.int32),
+        rseq=np.asarray(rseqs, np.int32), text="x" * n,
+        text_off=np.arange(n + 1, dtype=np.int32), timestamp=ts)
+
+
+def _ap(pkg) -> SimpleNamespace:
+    p = _p(pkg)
+    p.ArrayBoxcar = module(pkg, "service.array_batch").ArrayBoxcar
+    return p
+
+
+class ArrayCapture(Capture):
+    def __init__(self):
+        super().__init__()
+        self.msns = []
+
+    def send_batch(self, batch):
+        if type(batch) is list:
+            self.sequenced.extend(batch)
+            return
+        self.msns.append((batch.base_seq, [int(m) for m in batch.msns],
+                          batch.last_msn))
+        self.sequenced.extend(batch.messages())
+
+
+def feed_scalar(p, deli, records):
+    """Every record op by op: an ArrayBoxcar as its dict boxcar's ops."""
+    offset = 0
+    for rec in records:
+        ops = ([rec] if not isinstance(rec, p.ArrayBoxcar)
+               else [p.RawMessage(rec.tenant_id, rec.document_id,
+                                  rec.client_id, op, rec.timestamp)
+                     for op in rec.to_raw_boxcar().ops])
+        for raw in ops:
+            deli.handler(p.QueuedMessage(offset, "raw", 0, raw))
+            offset += 1
+
+
+def _clients_and_seq(deli) -> dict:
+    cp = deli.checkpoint().to_dict()
+    del cp["log_offset"]
+    return cp
+
+
+def run_array_lane(p, pkg, records):
+    from fluidframework_tpu_torch.utils import telemetry
+
+    cap_s, cap_a = Capture(), ArrayCapture()
+    scalar = make_deli(p, cap_s, batch=False)
+    feed_scalar(p, scalar, records)
+    lane = p.DeliLambda("t", "d", send_sequenced=cap_a.send,
+                        send_nack=cap_a.nack, clock=lambda: 1000.0,
+                        send_sequenced_batch=cap_a.send_batch)
+    if pkg == "torch":
+        telemetry.record(True)
+    try:
+        for offset, rec in enumerate(records):
+            lane.handler(p.QueuedMessage(offset, "raw", 0, rec))
+    finally:
+        if pkg == "torch":
+            telemetry.record(False)
+    if pkg == "torch":
+        counters = telemetry.SPANS.snapshot()["counters"]
+        telemetry.SPANS.reset()
+        assert counters.get("deli.array.fast", 0) == lane.boxcars_fast
+        assert counters.get("deli.array.fallback", 0) \
+            == lane.boxcars_fallback
+    stream = [msg_key(m) for m in cap_a.sequenced]
+    assert stream == [msg_key(m) for m in cap_s.sequenced]
+    nacks = [(c, n.message) for c, n in cap_a.nacks]
+    assert nacks == [(c, n.message) for c, n in cap_s.nacks]
+    assert _clients_and_seq(lane) == _clients_and_seq(scalar)
+    return lane, [stream, nacks, cap_a.msns, lane.checkpoint().to_dict(),
+                  lane.boxcars_fast, lane.boxcars_fallback]
+
+
+def _joined(p):
+    """a joins at seq 0 (refSeq 0), b at 1, c at 2; seq 3 after."""
+    return [join(p, "a"), join(p, "b"), join(p, "c")]
+
+
+def _others_at_3(p):
+    """b and c move their refSeqs to 3 and 4: the floor of a's others
+    is 3."""
+    return [abox(p, "b", [1, 2], [3, 3]), abox(p, "c", [1], [4])]
+
+
+ARRAY_CASES = {
+    # (records, fast boxcars, fallback boxcars)
+    "gap_inside": (lambda p: _joined(p) + [
+        abox(p, "a", [1, 2, 4, 5], [2, 2, 2, 2])], 0, 1),
+    "clientseq_swapped_inside": (lambda p: _joined(p) + [
+        abox(p, "a", [1, 3, 2, 4], [2, 2, 2, 2])], 0, 1),
+    "refseq_falls_inside": (lambda p: _joined(p) + [
+        abox(p, "a", [1, 2, 3], [3, 2, 3])], 0, 1),
+    "first_op_ahead": (lambda p: _joined(p) + [
+        abox(p, "a", [2, 3, 4], [2, 2, 2])], 0, 1),
+    "first_op_duplicate": (lambda p: _joined(p) + [
+        abox(p, "a", [1, 2], [2, 2]), abox(p, "a", [2, 3, 4], [3, 3, 3])],
+        1, 1),
+    "first_refseq_below_stored": (lambda p: _joined(p) + [
+        abox(p, "b", [1, 2], [0, 1])], 0, 1),
+    "unknown_client": (lambda p: _joined(p) + [
+        abox(p, "ghost", [1, 2], [2, 2])], 0, 1),
+    "empty": (lambda p: _joined(p) + [abox(p, "a", [], [])], 0, 1),
+    "others_min_below": (lambda p: _joined(p) + _others_at_3(p) + [
+        abox(p, "a", [1, 2, 3], [4, 5, 6])], 3, 0),
+    "others_min_equal": (lambda p: _joined(p) + _others_at_3(p) + [
+        abox(p, "a", [1, 2, 3], [3, 3, 3])], 3, 0),
+    "others_min_inside": (lambda p: _joined(p) + _others_at_3(p) + [
+        abox(p, "a", [1, 2, 3, 4], [2, 3, 4, 5])], 3, 0),
+    "others_min_above": (lambda p: _joined(p) + _others_at_3(p) + [
+        abox(p, "a", [1, 2, 3], [0, 1, 2])], 3, 0),
+    "alone": (lambda p: [join(p, "a"), abox(p, "a", [1, 2, 3], [1, 1, 2]),
+                         abox(p, "a", [4, 5], [4, 4])], 2, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ARRAY_CASES))
+def test_array_lane_matches_scalar_lane(case):
+    build, fast, fallback = ARRAY_CASES[case]
+
+    def scenario(pkg):
+        p = _ap(pkg)
+        lane, shown = run_array_lane(p, pkg, build(p))
+        assert (lane.boxcars_fast, lane.boxcars_fallback) == (fast,
+                                                              fallback)
+        return shown
+
+    shown = {pkg: scenario(pkg) for pkg in PKGS}
+    assert shown["torch"] == shown["jax"]

@@ -208,6 +208,61 @@ def test_flight_recorder_rings_and_dump(tmp_path):
     _both(_flight, tmp_path)
 
 
+def _dumped_events(rec, reason: str) -> list:
+    path = rec.dump(reason)
+    return [json.loads(x) for x in open(path, encoding="utf-8")][1:]
+
+
+def test_admission_dumps_the_fields_of_an_event(tmp_path):
+    """``admission`` keeps a boxcar's event in the ring as a tuple;
+    ``dump`` writes it as ``event`` writes the same fields, key for key
+    and in the same order."""
+    obs = module("torch", "obs")
+    as_event = obs.FlightRecorder(dump_dir=str(tmp_path / "event"))
+    as_tuple = obs.FlightRecorder(dump_dir=str(tmp_path / "tuple"))
+    as_event.event("deli", "aboxcar", doc="d0", client="c-1", n=24)
+    as_tuple.admission("aboxcar", "d0", "c-1", 24)
+    (a,) = _dumped_events(as_event, "why")
+    (b,) = _dumped_events(as_tuple, "why")
+    assert list(a) == list(b) == ["kind", "ts", "tier", "event", "doc",
+                                  "client", "n"]
+    assert {k: v for k, v in a.items() if k not in WALL_CLOCK} == {
+        k: v for k, v in b.items() if k not in WALL_CLOCK}
+    assert isinstance(b["ts"], float)
+
+
+def _submit_events(pkg, tmp_path):
+    """A server's two submit doors each leave one admission event a
+    boxcar in the process's recorder."""
+    import numpy as np
+
+    server = module(pkg, "service.local_server").LocalServer()
+    ArrayBoxcar = module(pkg, "service.array_batch").ArrayBoxcar
+    msgs = module(pkg, "protocol.messages")
+    conn = server.connect("t", "flightdoc")
+    conn.submit_array(ArrayBoxcar(
+        tenant_id="", document_id="", client_id="", ds_id="default",
+        channel_id="text", kind=np.zeros(2, np.int8),
+        a=np.zeros(2, np.int32), b=np.zeros(2, np.int32),
+        cseq=np.arange(1, 3, dtype=np.int32),
+        rseq=np.zeros(2, np.int32), text="ab",
+        text_off=np.arange(3, dtype=np.int32)))
+    conn.submit([msgs.DocumentMessage(3, 0, msgs.MessageType.OPERATION,
+                                      {"n": 1})])
+    events = [e for e in _dumped_events(server._flight, pkg)
+              if e.get("doc") == "flightdoc"]
+    assert [e["event"] for e in events] == ["aboxcar", "boxcar"]
+    assert all(e["client"] == conn.client_id for e in events)
+    return [[(k, v) for k, v in e.items() if k not in WALL_CLOCK + (
+        "client",)] for e in events]
+
+
+def test_submit_admission_events_match_the_reference(tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setenv("FLUID_FLIGHT_DIR", str(tmp_path))
+    _both(_submit_events, tmp_path)
+
+
 @pytest.fixture
 def front_end():
     fe = NetworkFrontEnd(LocalServer()).start_background()

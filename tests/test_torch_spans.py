@@ -253,7 +253,11 @@ def test_a_traced_server_and_farm(recorder):
     # intervals of the farm's own timers
     counters = snap["counters"]
     assert set(counters) == {"applier.wave.rows", "applier.wave.slots",
-                             "applier.ingest.packed_rows"}
+                             "applier.ingest.packed_rows",
+                             "deli.array.fast"}
+    # every boxcar was ticketed on deli's array fast lane
+    assert counters["deli.array.fast"] == boxcars == sum(
+        o.deli.boxcars_fast for o in svc.server._orderers.values())
     assert 0 < counters["applier.wave.rows"] <= counters["applier.wave.slots"]
     # every op of the array lane took the flush's columnar pack
     assert counters["applier.ingest.packed_rows"] == svc.app.ops_applied
@@ -263,6 +267,28 @@ def test_a_traced_server_and_farm(recorder):
         svc.app.stage_seconds, rel=1e-9)
     assert _seconds(snap, "applier.execute") == pytest.approx(
         svc.app.exec_seconds, rel=1e-9)
+
+
+def test_a_boxcar_keeps_its_pipeline_spans(recorder):
+    """Traced, each flood-shaped boxcar records the pipeline's spans and
+    the farm's ingest once, the sessions' one row standing for a call a
+    session of its doc: seven rows a boxcar."""
+    svc = Service()
+    per_boxcar = dict.fromkeys(PIPELINE + ("applier.ingest",), 1)
+    per_boxcar["session"] = CLIENTS
+    with traced():
+        for conn, editor in svc.sessions:
+            before = recorder.snapshot()
+            conn.submit_array(editor.next_boxcar(
+                BOXCAR, TENANT, conn.document_id, conn.client_id))
+            after = recorder.snapshot()
+            assert set(after["spans"]) == set(per_boxcar)
+            assert {name: _calls(after, name) - _calls(before, name)
+                    for name in after["spans"]} == per_boxcar
+            assert after["rows"] - before["rows"] == len(per_boxcar)
+            assert after["counters"]["deli.array.fast"] - before[
+                "counters"].get("deli.array.fast", 0) == 1
+    svc.app.finalize()
 
 
 def _two_key_boxcar(conn, editor) -> ArrayBoxcar:
@@ -473,7 +499,7 @@ READERS = ("entry_us_per_op.flood", "deli_us_per_op.flood",
            "sessions_us_per_op.flood", "assemble_us_per_op.flood",
            "launch_us_per_op.flood", "card_wait_us_per_op.flood",
            "wave_fill.flood", "pack_us_per_op.flood",
-           "packed_share.flood")
+           "packed_share.flood", "deli_fast_share.flood")
 
 
 @pytest.fixture
@@ -524,6 +550,7 @@ def test_the_benchmarks_span_readers(recorder, tiny_bench, profiled,
     assert all(isinstance(got[k], float) for k in READERS)
     assert 0 < got["wave_fill.flood"] <= 100
     assert got["packed_share.flood"] == 100.0
+    assert got["deli_fast_share.flood"] == 100.0
     snap = recorder.snapshot()
     acked = out["attempted"] - out["failed"]
     parts = sum(got[k] for k in READERS[:5]) * acked / 1e6 + _seconds(
