@@ -302,3 +302,78 @@ def decode_state(
                 seg.rem_clients.add(int(a["rem_client_b"][i]))
         tree.segments.append(seg)
     return tree
+
+
+#: fill of an unused slot, field by field (``DocState.empty``)
+SLOT_FILL = {"length": 0, "text_start": 0, "flags": 0, "ins_seq": 0,
+             "ins_client": NO_CLIENT, "rem_seq": NO_SEQ,
+             "rem_client_a": NO_CLIENT, "rem_client_b": NO_CLIENT,
+             "prop_key": NO_KEY, "prop_val": 0}
+
+
+def merge_settled_runs(rows: dict, msn: np.ndarray) -> dict:
+    """Zamboni's merge of neighbours on R docs' rows, in numpy.
+
+    ``rows`` holds the slot fields as [R, W] arrays (``prop_key`` and
+    ``prop_val`` [R, W, P]) and ``count`` [R]; ``msn`` [R] is each doc's
+    collaboration-window floor. Two adjacent used slots merge when both
+    are settled — inserted at or below the msn, never removed, not a
+    marker — and their property tables hold the same (key, value) pairs
+    in any order: ``segments.py::can_append`` under
+    ``MergeTree.update_min_seq`` (ref: mergeTree.ts:1455). A run of such
+    slots becomes its first slot with the run's summed length, so it keeps
+    that slot's ``ins_seq``, ``ins_client`` and properties, as
+    ``Segment.append`` does. Every later op has a refSeq at or above the
+    msn, so it sees each piece of a run exactly as it sees the whole.
+
+    Returns the merged rows: the same shapes, unused slots at
+    ``SLOT_FILL``, ``text_start`` left for the caller, who rebuilds the
+    text."""
+    count = rows["count"]
+    R, W = rows["length"].shape
+    i = np.arange(W)
+    in_use = i[None, :] < count[:, None]
+    settled = (in_use & (rows["flags"] & FLAG_MARKER == 0)
+               & (rows["rem_seq"] == NO_SEQ)
+               & (rows["ins_seq"] <= msn[:, None]))
+    # property tables as sorted (key, value) pairs, over the entries any
+    # slot uses: equal dicts compare equal whatever entries they sit in
+    used = np.nonzero((rows["prop_key"] != NO_KEY).any(axis=(0, 1)))[0]
+    same = settled[:, 1:] & settled[:, :-1]
+    if len(used):
+        keys = rows["prop_key"][..., :used[-1] + 1]
+        vals = rows["prop_val"][..., :used[-1] + 1]
+        empty = keys == NO_KEY
+        keys = np.where(empty, np.iinfo(np.int32).max, keys)
+        vals = np.where(empty, 0, vals)
+        if keys.shape[-1] > 1:
+            order = np.argsort(keys, axis=-1, kind="stable")
+            keys = np.take_along_axis(keys, order, -1)
+            vals = np.take_along_axis(vals, order, -1)
+        same &= ((keys[:, 1:] == keys[:, :-1]).all(-1)
+                 & (vals[:, 1:] == vals[:, :-1]).all(-1))
+    join = np.zeros((R, W), bool)
+    join[:, 1:] = same
+    head = in_use & ~join
+    new_count = head.sum(1).astype(np.int32)
+    # the heads in row-major order, each with its new slot's flat index
+    src = np.flatnonzero(head)
+    rank = np.cumsum(head, axis=1) - 1
+    dest = (src // W) * W + rank.ravel()[src]
+    # a run's length: the used lengths from its head to the next head
+    lengths = np.cumsum(np.where(in_use, rows["length"], 0).ravel())
+    ends = np.append(src[1:], R * W) - 1
+    before = np.where(src > 0, lengths[src - 1], 0)
+    merged = {}
+    length = np.zeros(R * W, np.int32)
+    length[dest] = lengths[ends] - before
+    merged["length"] = length.reshape(R, W)
+    for f in ("text_start", "flags", "ins_seq", "ins_client", "rem_seq",
+              "rem_client_a", "rem_client_b", "prop_key", "prop_val"):
+        field = rows[f]
+        flat = field.reshape(R * W, -1)
+        out = np.full(flat.shape, SLOT_FILL[f], np.int32)
+        out[dest] = flat[src]
+        merged[f] = out.reshape(field.shape)
+    merged["count"] = new_count
+    return merged

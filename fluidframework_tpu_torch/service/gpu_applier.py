@@ -128,6 +128,7 @@ from ..ops.doc_state import (
     PropTable,
     TextArena,
     decode_state,
+    merge_settled_runs,
     state_from_numpy,
 )
 from ..parallel.mesh import Mesh, make_mesh, virtual_devices
@@ -157,6 +158,27 @@ TAKE_SPAN = SPANS.name_id("applier.take")
 STAGE_SPAN = SPANS.name_id("applier.stage")
 EXECUTE_SPAN = SPANS.name_id("applier.execute")
 SYNC_SPAN = SPANS.name_id("applier.sync")
+REPACK_SPAN = SPANS.name_id("applier.repack")
+
+
+def repack_watermark(max_slots: int, ops_per_dispatch: int) -> int:
+    """A doc counted above this many slots before a wave is repacked
+    first: S − 2K. An op row makes at most two slots, so a doc at or
+    under it takes a whole wave of K rows without reaching S."""
+    return max_slots - 2 * ops_per_dispatch
+
+
+def repack_ceiling(max_slots: int, ops_per_dispatch: int) -> int:
+    """The most slots a repack should leave a doc with: S − 4K. At two
+    slots a row, a doc at or under it takes at least K more rows, a whole
+    wave, before it passes the watermark again. A doc that merges to
+    more (a lagging client holds the msn back, or its props differ run by
+    run) is repacked again only once it has grown 2K slots, a wave's
+    worth, past what the repack left (the thrash guard: never every
+    wave); if it fills S first, the kernel's flag sends it to the host,
+    the last resort. A farm where this is not positive (S ≤ 4K) repacks
+    nothing: a doc there that outgrows S escalates."""
+    return max_slots - 4 * ops_per_dispatch
 
 
 _TORCH_DTYPE = {np.dtype(np.int16): torch.int16,
@@ -328,6 +350,36 @@ class GpuDocumentApplier:
         self.wide_dispatches = 0
         self.ops_applied = 0
         self.host_escalations = 0
+        # ops applied on host replicas that no wave applied: an escalated
+        # doc's replay past its last dispatched row, and what follows it
+        self.host_ops_applied = 0
+        # the repack (zamboni's merge of settled neighbours) at a slot
+        # watermark: _bound is an upper bound on each doc's slot count
+        # (the count at the last read, 2 a row dispatched since);
+        # _applied_msn and _dispatched_seq are the msn and seq of each
+        # doc's last dispatched row (msn -1: none since the farm was made
+        # or loaded, so nothing is known settled)
+        self._watermark = repack_watermark(self.max_slots, self.K)
+        self._ceiling = repack_ceiling(self.max_slots, self.K)
+        self._bound = np.zeros(self.max_docs, np.int64)
+        # the thrash guard: a doc whose last repack left it above the
+        # ceiling is repacked again only past this count (0: no such doc)
+        self._retry_at = np.zeros(self.max_docs, np.int64)
+        self._applied_msn = np.full(self.max_docs, -1, np.int64)
+        self._dispatched_seq = np.zeros(self.max_docs, np.int64)
+        self.doc_repacks = np.zeros(self.max_docs, np.int64)  # by row
+        self.repack_slots_in = 0
+        self.repack_slots_out = 0
+        self.repack_escalations = 0
+        # async: docs the worker found over the watermark before a wave,
+        # and the wave's taken chunks: the worker waits (_repack_done)
+        # until the caller repacks them at its next sync point; _paused
+        # holds the worker off while the caller does
+        self._repack_slots: set[int] = set()
+        self._repack_taken: dict = {}
+        self._repack_done = threading.Event()
+        self._repack_done.set()
+        self._paused = False
         # async mode: a worker thread owns wave building, the copy and
         # dispatch, so the ordering pipeline never waits on the card. The
         # worker is the ONLY state mutator; the caller's thread stages
@@ -682,6 +734,8 @@ class GpuDocumentApplier:
             self._check_worker()
             if self._pending:
                 self._pack()
+            if self._repack_slots:
+                self._pause_and_repack()
             self._wake.set()
             return 0
         return self._flush_sync()
@@ -708,9 +762,11 @@ class GpuDocumentApplier:
             try:
                 while True:
                     self._check_worker()
+                    if self._repack_slots:
+                        self._pause_and_repack()
                     self._wake.set()
                     with self._lock:
-                        empty = not self._staged
+                        empty = not self._staged and not self._repack_slots
                     if empty and self._idle.is_set():
                         break
                     time.sleep(0.0005)
@@ -745,6 +801,7 @@ class GpuDocumentApplier:
                 raise RuntimeError("applier worker did not stop in 60 s")
             self._worker = None
             self._async = False
+            self._repack_held()
             # overflow the worker found but finalize never escalated: the
             # flags are sticky on the card, so the next read polls again
             self._dispatches_since_check = max(self._dispatches_since_check,
@@ -813,6 +870,8 @@ class GpuDocumentApplier:
         stream current). Overlap comes from the execute half being an
         asynchronous enqueue: the NEXT wave's stage half runs on the host
         while this wave runs on the card."""
+        if self._ceiling > 0 and parts:
+            parts = self._wave_check(parts)
         staged = self._stage_wave(parts)
         if staged is None:
             return 0
@@ -836,7 +895,9 @@ class GpuDocumentApplier:
             if self._stop:
                 return
             with self._lock:
-                if not self._draining and self._min_wave \
+                if self._paused:
+                    parts = None  # the caller repacks on its thread
+                elif not self._draining and self._min_wave \
                         and self._staged_ops < self._min_wave:
                     parts = None
                 else:
@@ -1016,6 +1077,9 @@ class GpuDocumentApplier:
         lens_a = np.array([count for _s, _t, count in parts])
         starts = np.cumsum(lens_a) - lens_a
         slots_a = np.array([slot for slot, _t, _n in parts], np.int64)
+        last = starts + lens_a - 1
+        self._applied_msn[slots_a] = flat[last, F_MSN]
+        self._dispatched_seq[slots_a] = flat[last, F_SEQ]
         packed, seq_base, text_base = pack_wave_rows(flat, starts, lens_a)
 
         force_wide = (
@@ -1166,6 +1230,223 @@ class GpuDocumentApplier:
             if int(slot) not in self._host_docs:
                 self._escalate(int(slot), None, None)
 
+    # ------------------------------------------------------------- repack
+
+    def _wave_check(self, parts) -> list:
+        """Before a wave: when the wave could take one of its docs past S
+        by the bounds (the count at the last read, 2 a row dispatched
+        since), read every doc's count and flag in one copy a device and
+        repack every unflagged doc counted past the watermark (or, its
+        thrash guard armed, past its retry count): here on the caller's
+        thread; the async worker hands them to the caller's next sync
+        point and waits for it. Returns the wave's parts that go on (none,
+        when the worker is stopped while it waits)."""
+        slots = np.fromiter((p[0] for p in parts), np.int64, len(parts))
+        rows = np.fromiter((p[2] for p in parts), np.int64, len(parts))
+        if int((self._bound[slots] + 2 * rows).max()) > self.max_slots:
+            counts, flags = self._read_counts()
+            self._retry_at[counts <= self._ceiling] = 0  # shrank by itself
+            # a flagged doc goes to the host at the overflow poll, as ever
+            able = (self._applied_msn >= 0) & ~flags
+            able[list(self._host_docs)] = False
+            need = np.nonzero(able & (counts > np.maximum(
+                self._watermark, self._retry_at)))[0]
+            self._bound = counts
+            if len(need) and threading.current_thread() is self._worker:
+                parts = self._await_repack(need, parts)
+            elif len(need):
+                taken = {p[0]: p[1] for p in parts}
+                self._bound[need] = self._repack(need, taken, counts[need])
+        self._bound[slots] += 2 * rows
+        return parts
+
+    def _read_counts(self) -> tuple:
+        """Every row's slot count and overflow flag, one device→host copy
+        a device."""
+        span = SPANS.begin(SYNC_SPAN) if tracing() else None
+        try:
+            with self._on_streams():
+                both = np.concatenate(
+                    [torch.stack([s.count, s.overflow.to(torch.int32)])
+                     .cpu().numpy() for s in self._shards], axis=1)
+        finally:
+            if span is not None:
+                SPANS.end(span)
+        return both[0].astype(np.int64), both[1].astype(bool)
+
+    def _await_repack(self, need: np.ndarray, parts: list) -> list:
+        """The worker's half of a repack: hand the docs and the wave's
+        taken chunks to the caller's next sync point, touch nothing until
+        it has repacked them, then go on with the wave. Stopped while
+        waiting, it gives the wave back to the staged rows."""
+        with self._lock:
+            self._repack_slots |= set(need.tolist())
+            self._repack_taken = {p[0]: p[1] for p in parts}
+            self._repack_done.clear()
+            self._idle.set()  # no device work until the repack is done
+        while not self._repack_done.wait(0.005):
+            if self._stop:
+                with self._lock:
+                    self._repack_taken = {}
+                    for slot, take, count in parts:
+                        self._staged[slot] = take + self._staged.get(slot, [])
+                        self._staged_ops += count
+                return []
+        return parts
+
+    def _pause_and_repack(self) -> None:
+        """The async lane's sync point for a repack: hold the worker off,
+        wait until it is idle or waiting for the repack, repack on this
+        thread, let it go again."""
+        with self._lock:
+            self._paused = True
+        try:
+            self._idle.wait()
+            self._check_worker()
+            self._repack_held()
+        finally:
+            with self._lock:
+                self._paused = False
+                if not self._repack_done.is_set():
+                    self._idle.clear()  # the worker goes on with its wave
+                    self._repack_done.set()
+            self._wake.set()
+
+    def _repack_held(self) -> None:
+        """Repack the docs the worker handed over (the worker is waiting,
+        idle or gone)."""
+        if self._pending:
+            self._pack()
+        with self._lock:
+            held = sorted(self._repack_slots - self._host_docs.keys())
+            self._repack_slots.clear()
+            taken, self._repack_taken = self._repack_taken, {}
+        if held:
+            slots = np.array(held, np.int64)
+            with self._on_streams():
+                self._bound[slots] = self._repack(slots, taken)
+
+    def _repack(self, slots: np.ndarray, taken: dict,
+                counts: Optional[np.ndarray] = None) -> np.ndarray:
+        """Merge the settled runs of docs ``slots`` (ascending, so shard
+        by shard) in one gather, one numpy pass and one scatter, at each
+        doc's msn of its last dispatched row (``ops/doc_state.py::
+        merge_settled_runs``), and rebuild each doc's text arena from its
+        slots, the text of its rows not yet applied (``taken``: slot → the
+        chunks of a wave taken but not staged; then its staged chunks)
+        after it. ``counts``: the docs' slot counts, if just read. Arms
+        the thrash guard of each doc left above the ceiling. Returns the
+        docs' slot counts afterwards."""
+        traced = tracing()
+        span = SPANS.begin(REPACK_SPAN) if traced else None
+        try:
+            if counts is None:
+                counts = self._read_counts()[0][slots]
+            width = max(int(counts.max()), 1)
+            rows = self._gather_rows(slots, width)
+            rows["count"] = counts.astype(np.int32)
+            merged = merge_settled_runs(rows, self._applied_msn[slots])
+            new_count = merged["count"]
+            ok = new_count <= self._ceiling
+            self._retry_at[slots] = np.where(
+                ok, 0, new_count.astype(np.int64) + 2 * self.K)
+            length = merged["length"]
+            starts = np.cumsum(length, axis=1) - length
+            merged["text_start"] = np.where(
+                np.arange(width)[None, :] < new_count[:, None], starts, 0
+            ).astype(np.int32)
+            old_ts, old_len = rows["text_start"], rows["length"]
+            for r, slot in enumerate(slots.tolist()):
+                n = int(counts[r])
+                old = self.arenas[slot].text()
+                text = "".join([old[a:a + b] for a, b in zip(
+                    old_ts[r, :n].tolist(), old_len[r, :n].tolist())])
+                self._rebase_staged(slot, old, text, taken.get(slot, []))
+            self._scatter_rows(slots, merged, width)
+            slots_in, slots_out = int(counts.sum()), int(new_count.sum())
+            self.doc_repacks[slots] += 1
+            self.repack_slots_in += slots_in
+            self.repack_slots_out += slots_out
+            if traced:
+                SPANS.count("applier.repack.docs", len(slots))
+                SPANS.count("applier.repack.slots_in", slots_in)
+                SPANS.count("applier.repack.slots_out", slots_out)
+        finally:
+            if span is not None:
+                SPANS.end(span)
+        return new_count.astype(np.int64)
+
+    def _shard_groups(self, slots: np.ndarray) -> list:
+        """``slots`` (ascending) as (shard, its rows there) pairs."""
+        sps = self.max_docs // len(self._shards)
+        shard_of = slots // sps
+        return [(sh, slots[shard_of == sh] % sps)
+                for sh in np.unique(shard_of).tolist()]
+
+    def _gather_rows(self, slots: np.ndarray, width: int) -> dict:
+        """The first ``width`` slots of rows ``slots``, every field but the
+        count and flag, in one device→host copy a shard."""
+        P = self._shards[0].max_props
+        parts = {f: [] for f in FIELDS[:-2]}
+        with self._on_streams():
+            for sh, local in self._shard_groups(slots):
+                state = self._shards[sh]
+                idx = torch.from_numpy(local).to(state.device)
+                flat = torch.cat([getattr(state, f)[idx, :width].flatten()
+                                  for f in FIELDS[:-2]]).cpu().numpy()
+                n = len(local) * width
+                for f, a in zip(FIELDS[:-2], np.split(
+                        flat, np.cumsum([n] * 8 + [n * P]))):
+                    parts[f].append(a.reshape(
+                        (len(local), width, P) if f.startswith("prop")
+                        else (len(local), width)))
+        return {f: np.concatenate(p) for f, p in parts.items()}
+
+    def _scatter_rows(self, slots: np.ndarray, merged: dict,
+                      width: int) -> None:
+        """Write ``merged`` (``_gather_rows``'s fields and the count) back
+        to rows ``slots``, in one host→device copy a shard."""
+        with self._on_streams():
+            lo = 0
+            for sh, local in self._shard_groups(slots):
+                hi = lo + len(local)
+                state = self._shards[sh]
+                idx = torch.from_numpy(local).to(state.device)
+                flat = torch.from_numpy(np.concatenate(
+                    [merged[f][lo:hi].ravel() for f in FIELDS[:-1]])
+                ).to(state.device)
+                at = 0
+                for f in FIELDS[:-2]:
+                    block = merged[f][lo:hi]
+                    getattr(state, f)[idx, :width] = \
+                        flat[at:at + block.size].view(block.shape)
+                    at += block.size
+                state.count[idx] = flat[at:]
+                lo = hi
+
+    def _rebase_staged(self, slot: int, old: str, text: str,
+                       taken: list) -> None:
+        """Make ``text`` (a repacked doc's slots' text, in slot order) the
+        head of the doc's new arena, with the text of its rows not yet
+        applied (``taken``, then its staged chunks) after it, and move
+        those rows' offsets by the difference. The slots reference only
+        text of dispatched rows, which the arena holds before any later
+        row's."""
+        chunks = list(taken) + self._staged.get(slot, [])
+        inserts = [ch[:, F_TYPE] == OP_INSERT for ch in chunks]
+        firsts = [int(ch[m, F_TSTART].min()) for ch, m in zip(chunks, inserts)
+                  if m.any()]
+        tail = min(firsts) if firsts else len(old)
+        shift = len(text) - tail
+        if shift:
+            for ch, m in zip(chunks, inserts):
+                ch[m, F_TSTART] += shift
+        arena = TextArena()
+        arena.append(text)
+        if tail < len(old):
+            arena.append(old[tail:])
+        self.arenas[slot] = arena
+
     # ------------------------------------------------------------- queries
 
     def _sync(self, slot: int) -> None:
@@ -1299,12 +1580,20 @@ class GpuDocumentApplier:
                 f"doc {tenant_id}/{document_id} needs host escalation but no "
                 "replay source is configured (set_replay_source)")
         self.host_escalations += 1
+        if self._retry_at[slot]:
+            # its last repack could not bring it under the ceiling
+            self.repack_escalations += 1
+            if tracing():
+                SPANS.count("applier.repack.escalated", 1)
         replica = MergeTreeClient(f"gpu-applier/{tenant_id}/{document_id}")
         self._host_docs[slot] = replica
         self._drop_staged(slot)
+        dispatched = int(self._dispatched_seq[slot])
         for m in self._replay_log(tenant_id, document_id):
             if m.type == MessageType.OPERATION:
                 replica.apply_msg(m, local=False)
+                if m.sequence_number > dispatched:
+                    self.host_ops_applied += 1
         self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
                                       replica.tree.current_seq)
         # deliberately NOT anchored: the applier cannot verify the replay
@@ -1319,6 +1608,7 @@ class GpuDocumentApplier:
         if msg.sequence_number <= replica.tree.current_seq:
             return  # already covered by the escalation replay
         replica.apply_msg(replace(msg, contents=wire_op), local=False)
+        self.host_ops_applied += 1
 
 
 # ----------------------------------------------------------- checkpointing
@@ -1426,6 +1716,7 @@ def load_applier_checkpoint(path: str, **applier_kwargs
         state = state_from_numpy(arrays, applier.device)
         applier._shards = (shard_state(state, applier._mesh)
                            if applier._mesh is not None else [state])
+    applier._bound = np.asarray(arrays["count"], np.int64).reshape(-1).copy()
     for slot, text in enumerate(meta["arenas"]):
         arena = TextArena()
         if text:
@@ -1443,6 +1734,8 @@ def load_applier_checkpoint(path: str, **applier_kwargs
             f"gpu-applier/{tenant_id}/{document_id}", snap)
     applier._applied_seq = {int(k): v for k, v in
                             meta.get("applied_seq", {}).items()}
+    for slot, seq in applier._applied_seq.items():
+        applier._dispatched_seq[slot] = seq  # the save finalized them
     applier._first_seq = {int(k): v for k, v in
                           meta.get("first_seq", {}).items()}
     # a checkpoint without an anchor set (written before coverage
