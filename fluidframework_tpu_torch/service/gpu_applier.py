@@ -17,11 +17,13 @@ on its own device (several may share one), and ``DocPlacement`` routes a
 doc to a (shard, slot) whose global row is ``shard * slots_per_shard +
 slot``. Every wave takes one dispatch lane, whatever the shard count.
 
-Ingest records each array boxcar (``ingest_array_batch``) and makes no
-array for it; a flush first packs every boxcar recorded since the last
-one into op rows in one columnar pass (``_pack``), one chunk a doc. The
-dict lane (``ingest_batch``) stages its rows as it goes, after the doc's
-recorded boxcars. A dispatch then has two halves. The host half
+Ingest records each array boxcar by reference (``ingest_array_batch``)
+and does nothing else with it; a flush first packs every boxcar recorded
+since the last one (``_pack``): its bookkeeping (coverage, client
+interning, the text arena, property interning) in arrival order, and its
+op rows in one columnar pass, one chunk a doc. The dict lane
+(``ingest_batch``) packs what is recorded first, then stages its rows as
+it goes. A dispatch then has two halves. The host half
 (``_stage_wave``, ``_stage_rows``) packs the wave's rows
 (``ops/apply.pack_wave_rows``) into int16 deltas plus int32 per-doc bases,
 and scatters each ACTIVE shard's rows into its [docs per shard, K, 12]
@@ -142,13 +144,13 @@ from ..parallel.sharded_apply import (
 from ..protocol.messages import MessageType
 from ..utils.affinity import blocking
 from ..utils.telemetry import SPANS, tracing
+from .array_batch import KIND_ANNOTATE
 from .scriptorium import channel_stream  # noqa: F401  (torch-free home)
 
 MARKER_GLYPH = "￼"  # arena placeholder byte for markers (flags classify)
 
 INT16_MIN, INT16_MAX = -(1 << 15), (1 << 15) - 1
 
-_ANNOTATE = b"\x02"  # wire kind 2 (annotate) as an int8 kind's byte
 _ONE_JSON_TEXT = (int, str, bool)  # one JSON text a (type, value)
 
 # the farm's spans (utils/telemetry.SPANS)
@@ -159,6 +161,21 @@ STAGE_SPAN = SPANS.name_id("applier.stage")
 EXECUTE_SPAN = SPANS.name_id("applier.execute")
 SYNC_SPAN = SPANS.name_id("applier.sync")
 REPACK_SPAN = SPANS.name_id("applier.repack")
+
+
+def _one_key(props) -> bool:
+    """Whether an annotate's props take the columnar pass: one key (an
+    annotate of several keys is one device op a key, on the per-op
+    lane)."""
+    return props is not None and len(props) == 1
+
+
+def _takes_per_op(box) -> bool:
+    """Whether an array boxcar has an annotate the columnar pass does not
+    take (``_one_key``)."""
+    props = box.props
+    return any(props is None or not _one_key(props[i]) for i in
+               np.flatnonzero(np.asarray(box.kind) == KIND_ANNOTATE).tolist())
 
 
 def repack_watermark(max_slots: int, ops_per_dispatch: int) -> int:
@@ -304,10 +321,12 @@ class GpuDocumentApplier:
         # _staged_ops is the row count
         self._staged: dict[int, list] = {}
         self._staged_ops = 0
-        # array boxcars recorded since the last pack, per slot in arrival
-        # order: (n, batch, boxcar, client id, arena start, the annotates'
-        # (row, key id, value id))
+        # array boxcars (SequencedArrayBatch) recorded since the last
+        # pack, per slot in arrival order, and the slot of each in global
+        # arrival order (property ids are global, so the pack interns in
+        # that order)
         self._pending: dict[int, list] = {}
+        self._arrivals: list[int] = []
         self._host_docs: dict[int, MergeTreeClient] = {}  # escalated docs
         self._doc_keys: dict[int, tuple[str, str]] = {}
         # the host replay source: fn(tenant, doc) -> iterable of
@@ -320,6 +339,8 @@ class GpuDocumentApplier:
         # _post_restore_first carry a checkpoint restore's window, which
         # the summarizer must see closed (restore_gap);
         # load_applier_checkpoint opens it, mark_anchored discharges it.
+        # Recorded boxcars enter them when the pack takes them; until
+        # then the readers add them from _pending.
         self._applied_seq: dict[int, int] = {}
         self._first_seq: dict[int, int] = {}
         self._anchored: set[int] = set()
@@ -424,21 +445,19 @@ class GpuDocumentApplier:
                      pairs: list) -> None:
         """Stage a broadcast batch of (sequenced message, wire op) pairs of
         one doc, in seq order. Staging is tuple appends; one array per
-        batch."""
+        batch. Recorded array boxcars are packed first: they arrived
+        before it, and property ids are global."""
         traced = tracing()
         span = SPANS.begin(INGEST_SPAN) if traced else None
         try:
+            if self._pending:
+                self._pack()
             slot = self.slot_of(tenant_id, document_id)
             if pairs:
                 # sequenced stream ⇒ pairs arrive in seq order; the last
                 # is max
-                self._applied_seq[slot] = max(
-                    self._applied_seq.get(slot, 0),
-                    pairs[-1][0].sequence_number)
-                self._first_seq.setdefault(slot, pairs[0][0].sequence_number)
-                if slot in self._restore_applied:
-                    self._post_restore_first.setdefault(
-                        slot, pairs[0][0].sequence_number)
+                self._cover(slot, pairs[0][0].sequence_number,
+                            pairs[-1][0].sequence_number)
             if self.fault_plane is not None and slot not in self._host_docs:
                 if self.fault_plane("applier.ingest", slot=slot) \
                         == "escalate_host":
@@ -508,62 +527,50 @@ class GpuDocumentApplier:
 
     def ingest_array_batch(self, tenant_id: str, document_id: str,
                            batch) -> None:
-        """Record a SequencedArrayBatch (``service/array_batch.py``) for
-        the next flush, which packs every recorded boxcar into op rows in
-        one columnar pass (``_pack``): no per-op dicts, tuples or message
-        objects, and no array made per boxcar. What depends on arrival
-        order happens here: coverage, client interning, the arena append
-        and the annotates' property interning. Annotates with other than
-        one prop key take the per-op path."""
-        span = SPANS.begin(INGEST_SPAN) if tracing() else None
+        """Record a SequencedArrayBatch (``service/array_batch.py``) by
+        reference for the next flush, and do nothing else with it: the
+        flush's ``_pack`` does the bookkeeping of every recorded boxcar
+        (coverage, client interning, the arena append, the annotates'
+        property interning) in arrival order and packs their op rows in
+        one columnar pass. A doc already on the host applies the boxcar
+        there at once."""
+        traced = tracing()
+        span = SPANS.begin(INGEST_SPAN) if traced else None
         try:
             slot = self.slot_of(tenant_id, document_id)
-            box = batch.boxcar
-            n = box.n
-            if n == 0:
+            if not batch.n:
                 return
-            self._applied_seq[slot] = max(self._applied_seq.get(slot, 0),
-                                          batch.base_seq + n - 1)
-            self._first_seq.setdefault(slot, batch.base_seq)
-            if slot in self._restore_applied:
-                self._post_restore_first.setdefault(slot, batch.base_seq)
-
-            def pairs():
-                return [(batch.message(i), box.wire_op(i)) for i in range(n)]
-
             if slot in self._host_docs:
-                for msg, wire_op in pairs():
-                    self._apply_host(slot, msg, wire_op)
+                self._cover(slot, batch.base_seq, batch.last_seq)
+                self._apply_host_batch(slot, batch)
                 return
-            kinds = np.asarray(box.kind, np.int8).tobytes()
-            props = box.props
-            ann = []
-            i = kinds.find(_ANNOTATE)
-            while i >= 0:
-                p = None if props is None else props[i]
-                if not p or len(p) != 1:
-                    self.ingest_batch(tenant_id, document_id, pairs())
-                    return
-                ann.append(i)
-                i = kinds.find(_ANNOTATE, i + 1)
-            table = self._client_ids.setdefault(slot, {})
-            client = table.get(box.client_id)
-            if client is None:
-                client = len(table)
-                table[box.client_id] = client
-            arena_start = self.arenas[slot].append(box.text)
-            if ann:
-                intern_key = self.prop_table.intern_key
-                for j, i in enumerate(ann):
-                    (k, v), = props[i].items()
-                    ann[j] = (i, intern_key(k),
-                              NO_VAL if v is None else self._intern_val(v))
             with self._lock:
-                self._pending.setdefault(slot, []).append(
-                    (n, batch, box, client, arena_start, ann))
+                group = self._pending.get(slot)
+                if group is None:
+                    self._pending[slot] = [batch]
+                else:
+                    group.append(batch)
+                self._arrivals.append(slot)
+            if traced:
+                SPANS.count("applier.ingest.deferred", 1)
         finally:
             if span is not None:
                 SPANS.end(span)
+
+    def _cover(self, slot: int, first: int, last: int) -> None:
+        """Coverage of ingested seqs ``first`` to ``last`` of doc
+        ``slot``."""
+        if self._applied_seq.get(slot, 0) < last:
+            self._applied_seq[slot] = last
+        self._first_seq.setdefault(slot, first)
+        if slot in self._restore_applied:
+            self._post_restore_first.setdefault(slot, first)
+
+    def _apply_host_batch(self, slot: int, batch) -> None:
+        """Apply an array boxcar to doc ``slot``'s host replica."""
+        box = batch.boxcar
+        for i in range(batch.n):
+            self._apply_host(slot, batch.message(i), box.wire_op(i))
 
     def _intern_val(self, value) -> int:
         """``prop_table.intern_val`` behind a memo of scalar values. The
@@ -584,87 +591,161 @@ class GpuDocumentApplier:
         return vid
 
     def _pack(self) -> None:
-        """Turn every recorded array boxcar into op rows in one columnar
-        pass: one concatenation a field, seqs, clients and arena bases by
-        repeat, annotate keys and values in one assignment. Each slot
-        gets one contiguous chunk, its boxcars in arrival order, after
-        whatever it has staged already; the rows are those a pack of each
-        boxcar on its own makes, byte for byte. Takes the lock (the async
-        worker reads the staged chunks)."""
+        """Take every recorded array boxcar off the record and do what
+        its arrival asks: coverage, for all of them at once as they
+        leave; then the columnar pass (``_pack_run``). Where a boxcar
+        cannot take that pass, the boxcars go in global arrival order
+        instead (``_pack_in_order``). Takes the lock to swap the record
+        and to stage the rows (the async worker reads the staged
+        chunks)."""
+        with self._lock:
+            pending, self._pending = self._pending, {}
+            arrivals, self._arrivals = self._arrivals, []
+            for slot, group in pending.items():
+                self._cover(slot, group[0].base_seq,
+                            max([b.last_seq for b in group]))
+        if not pending:
+            return
         span = SPANS.begin(PACK_SPAN, request=True) if tracing() else None
         try:
-            with self._lock:
-                pending, self._pending = self._pending, {}
-                entries = [e for group in pending.values() for e in group]
-                b = len(entries)
-                ns = np.fromiter([e[0] for e in entries], np.int64, b)
-                ends = np.cumsum(ns)
-                starts = ends - ns
-                total = int(ends[-1])
-                boxes = [e[2] for e in entries]
-                rows = np.zeros((total, OP_FIELDS), np.int32)
-                # wire kinds (0 ins, 1 rem, 2 ann) → op codes (1, 2, 3)
-                rows[:, F_TYPE] = np.concatenate(
-                    [bx.kind for bx in boxes]).astype(np.int32) + 1
-                rows[:, F_POS] = np.concatenate([bx.a for bx in boxes])
-                rows[:, F_END] = np.concatenate([bx.b for bx in boxes])
-                base = np.fromiter([e[1].base_seq for e in entries],
-                                   np.int64, b)
-                rows[:, F_SEQ] = (np.repeat(base - starts, ns)
-                                  + np.arange(total, dtype=np.int64))
-                rows[:, F_REFSEQ] = np.concatenate([bx.rseq for bx in boxes])
-                rows[:, F_CLIENT] = np.repeat(
-                    np.fromiter([e[3] for e in entries], np.int64, b), ns)
-                rows[:, F_MSN] = np.concatenate([e[1].msns for e in entries])
-                # a boxcar's n + 1 text offsets close with its text's
-                # length; the closing ones are no row's
-                offs = np.concatenate([bx.text_off for bx in boxes])
-                opens = np.ones(len(offs), bool)
-                opens[ends + np.arange(b)] = False
-                rows[:, F_TLEN] = np.diff(offs)[opens[:-1]]
-                rows[:, F_TSTART] = np.repeat(
-                    np.fromiter([e[4] for e in entries], np.int64, b),
-                    ns) + offs[opens]
-                at, keys, vals = [], [], []
-                for first, e in zip(starts.tolist(), entries):
-                    for i, k, v in e[5]:
-                        at.append(first + i)
-                        keys.append(k)
-                        vals.append(v)
-                if at:
-                    rows[at, F_KEY] = keys
-                    rows[at, F_VAL] = vals
-                # each slot's rows: one contiguous chunk
-                lo = 0
-                group_ends = ends[np.cumsum(
-                    [len(group) for group in pending.values()]) - 1]
-                for slot, hi in zip(pending, group_ends.tolist()):
-                    self._staged.setdefault(slot, []).append(rows[lo:hi])
-                    lo = hi
-                self._staged_ops += total
+            total = self._pack_run(pending, arrivals)
+            if total is None:
+                total = self._pack_in_order(pending, arrivals)
         finally:
             if span is not None:
                 SPANS.end(span)
         if span is not None:
             SPANS.count("applier.ingest.packed_rows", total)
 
+    def _pack_run(self, pending: dict, arrivals: list) -> Optional[int]:
+        """The columnar pass over recorded boxcars ``pending`` (slot →
+        its batches in arrival order; ``arrivals``: the slot of each
+        boxcar in global arrival order): one concatenation a field, seqs,
+        clients and arena starts by repeat, annotate keys and values in
+        one assignment. Clients are interned and texts appended to the
+        arena a doc at a time, property keys and values in global arrival
+        order, so every id and offset is the one a pack of each boxcar at
+        its arrival gives. Each slot gets one contiguous chunk after
+        whatever it has staged already. Returns the rows staged; or None,
+        having changed nothing, when an annotate carries other than one
+        prop key (that boxcar takes the per-op lane)."""
+        groups = list(pending.items())
+        batches = [b for _slot, group in groups for b in group]
+        b = len(batches)
+        boxes = [x.boxcar for x in batches]
+        ns = np.fromiter([x.n for x in batches], np.int64, b)
+        ends = np.cumsum(ns)
+        starts = ends - ns
+        total = int(ends[-1])
+        kinds = np.concatenate([bx.kind for bx in boxes])
+        ann = np.flatnonzero(kinds == KIND_ANNOTATE)
+        box_of = np.searchsorted(ends, ann, side="right")
+        props = []
+        for i, r in zip(box_of.tolist(), (ann - starts[box_of]).tolist()):
+            p = boxes[i].props
+            p = None if p is None else p[r]
+            if not _one_key(p):
+                return None
+            props.append(p)
+        clients, arena_starts = [], []
+        for slot, group in groups:
+            table = self._client_ids.setdefault(slot, {})
+            arena_append = self.arenas[slot].append
+            for x in group:
+                box = x.boxcar
+                clients.append(table.setdefault(box.client_id, len(table)))
+                arena_starts.append(arena_append(box.text))
+        rows = np.zeros((total, OP_FIELDS), np.int32)
+        # wire kinds (0 ins, 1 rem, 2 ann) → op codes (1, 2, 3)
+        rows[:, F_TYPE] = kinds.astype(np.int32) + 1
+        rows[:, F_POS] = np.concatenate([bx.a for bx in boxes])
+        rows[:, F_END] = np.concatenate([bx.b for bx in boxes])
+        base = np.fromiter([x.base_seq for x in batches], np.int64, b)
+        rows[:, F_SEQ] = (np.repeat(base - starts, ns)
+                          + np.arange(total, dtype=np.int64))
+        rows[:, F_REFSEQ] = np.concatenate([bx.rseq for bx in boxes])
+        rows[:, F_CLIENT] = np.repeat(np.asarray(clients, np.int64), ns)
+        rows[:, F_MSN] = np.concatenate([x.msns for x in batches])
+        # a boxcar's n + 1 text offsets close with its text's length; the
+        # closing ones are no row's
+        offs = np.concatenate([bx.text_off for bx in boxes])
+        opens = np.ones(len(offs), bool)
+        opens[ends + np.arange(b)] = False
+        rows[:, F_TLEN] = np.diff(offs)[opens[:-1]]
+        rows[:, F_TSTART] = np.repeat(np.asarray(arena_starts, np.int64),
+                                      ns) + offs[opens]
+        if props:
+            # the boxcars' arrival indices, grouped as the rows are: a
+            # stable sort of the arrivals by their slot's group
+            rank = {slot: g for g, (slot, _group) in enumerate(groups)}
+            arrival = np.argsort(np.fromiter(
+                [rank[slot] for slot in arrivals], np.int64, b),
+                kind="stable")
+            keys, vals = [0] * len(props), [0] * len(props)
+            intern_key = self.prop_table.intern_key
+            for j in np.argsort(arrival[box_of], kind="stable").tolist():
+                (k, v), = props[j].items()
+                keys[j] = intern_key(k)
+                vals[j] = NO_VAL if v is None else self._intern_val(v)
+            rows[ann, F_KEY] = keys
+            rows[ann, F_VAL] = vals
+        with self._lock:
+            lo = 0
+            for (slot, _group), hi in zip(groups, ends[np.cumsum(
+                    [len(group) for _slot, group in groups]) - 1].tolist()):
+                self._staged.setdefault(slot, []).append(rows[lo:hi])
+                lo = hi
+            self._staged_ops += total
+        return total
+
+    def _pack_in_order(self, pending: dict, arrivals: list) -> int:
+        """``_pack`` where a boxcar cannot take the columnar pass: the
+        boxcars in global arrival order, a boxcar whose annotates carry
+        other than one prop key on the per-op lane (``ingest_batch``), one
+        of a doc on the host applied there (a doc the per-op lane sent
+        there), and each run of boxcars between such through
+        ``_pack_run``. Returns the rows the runs staged."""
+        boxcars = {slot: iter(group) for slot, group in pending.items()}
+        total = 0
+        run, order = {}, []
+        for slot in arrivals:
+            batch = next(boxcars[slot])
+            host = slot in self._host_docs
+            if host or _takes_per_op(batch.boxcar):
+                if run:
+                    total += self._pack_run(run, order)
+                    run, order = {}, []
+                if host:
+                    self._apply_host_batch(slot, batch)
+                else:
+                    box = batch.boxcar
+                    self.ingest_batch(*self._doc_keys[slot], [
+                        (batch.message(i), box.wire_op(i))
+                        for i in range(batch.n)])
+                continue
+            run.setdefault(slot, []).append(batch)
+            order.append(slot)
+        if run:
+            total += self._pack_run(run, order)
+        return total
+
     def _push_chunk(self, slot: int, chunk: np.ndarray) -> None:
         """Append a staged [n, OP_FIELDS] chunk of the dict lane (with
-        _pack, the ONLY staging-count mutation points besides
-        _take_wave_locked/_drop_staged). The slot's recorded boxcars are
-        packed first: they arrived before it."""
-        if slot in self._pending:
-            self._pack()
+        _pack_run, the ONLY staging-count mutation points besides
+        _take_wave_locked/_drop_staged)."""
         with self._lock:
             self._staged.setdefault(slot, []).append(chunk)
             self._staged_ops += len(chunk)
 
     def _drop_staged(self, slot: int) -> None:
-        """Discard a slot's staged chunks and recorded boxcars (escalation
-        path: the replay holds them), keeping the staged-op count
-        consistent."""
+        """Discard a slot's staged chunks (escalation path: the replay
+        holds them), keeping the staged-op count consistent. Recorded
+        boxcars are packed first, so that their bookkeeping (coverage,
+        the doc's clients and arena, property ids) stands as if each had
+        been staged at its arrival."""
+        if slot in self._pending:
+            self._pack()
         with self._lock:
-            self._pending.pop(slot, None)
             dropped = self._staged.pop(slot, None)
             if dropped:
                 self._staged_ops -= sum(len(c) for c in dropped)
@@ -1314,9 +1395,8 @@ class GpuDocumentApplier:
 
     def _repack_held(self) -> None:
         """Repack the docs the worker handed over (the worker is waiting,
-        idle or gone)."""
-        if self._pending:
-            self._pack()
+        idle or gone). Recorded boxcars stay recorded: they have no arena
+        start yet, so the next pack appends them to the rebuilt arena."""
         with self._lock:
             held = sorted(self._repack_slots - self._host_docs.keys())
             self._repack_slots.clear()
@@ -1528,12 +1608,28 @@ class GpuDocumentApplier:
     def applied_seq(self, tenant_id: str, document_id: str) -> int:
         """Highest sequence number ingested for the doc (0 if none).
         Summary writers compare this against the stream's last channel op
-        to refuse writing a summary from lagging device state."""
-        return self._applied_seq.get(self.slot_of(tenant_id, document_id), 0)
+        to refuse writing a summary from lagging device state. Counts the
+        doc's recorded boxcars."""
+        slot = self.slot_of(tenant_id, document_id)
+        with self._lock:
+            seq = self._applied_seq.get(slot, 0)
+            group = self._pending.get(slot)
+            if group:
+                seq = max(seq, max([b.last_seq for b in group]))
+        return seq
 
     def first_seq(self, tenant_id: str, document_id: str) -> int:
-        """First sequence number ever ingested for the doc (0 if none)."""
-        return self._first_seq.get(self.slot_of(tenant_id, document_id), 0)
+        """First sequence number ever ingested for the doc (0 if none),
+        a recorded boxcar's included."""
+        slot = self.slot_of(tenant_id, document_id)
+        with self._lock:
+            return self._first_seq.get(slot, self._first_recorded(slot, 0))
+
+    def _first_recorded(self, slot: int, default):
+        """The first seq of doc ``slot``'s recorded boxcars, else
+        ``default`` (caller holds the lock)."""
+        group = self._pending.get(slot)
+        return group[0].base_seq if group else default
 
     def is_anchored(self, tenant_id: str, document_id: str) -> bool:
         """True when the slot's state provably covers the doc's whole
@@ -1555,10 +1651,12 @@ class GpuDocumentApplier:
         for a restored slot, else None. Ops sequenced in between were
         never ingested — the summarizer refuses if the stream shows any."""
         slot = self.slot_of(tenant_id, document_id)
-        if slot not in self._restore_applied:
-            return None
-        return (self._restore_applied[slot],
-                self._post_restore_first.get(slot))
+        with self._lock:
+            if slot not in self._restore_applied:
+                return None
+            return (self._restore_applied[slot],
+                    self._post_restore_first.get(
+                        slot, self._first_recorded(slot, None)))
 
     # ---------------------------------------------------- host escalation
 
@@ -1585,9 +1683,10 @@ class GpuDocumentApplier:
             self.repack_escalations += 1
             if tracing():
                 SPANS.count("applier.repack.escalated", 1)
+        # before the doc turns host: its recorded boxcars pack as the farm's
+        self._drop_staged(slot)
         replica = MergeTreeClient(f"gpu-applier/{tenant_id}/{document_id}")
         self._host_docs[slot] = replica
-        self._drop_staged(slot)
         dispatched = int(self._dispatched_seq[slot])
         for m in self._replay_log(tenant_id, document_id):
             if m.type == MessageType.OPERATION:

@@ -1,16 +1,20 @@
 """The farm's deferred array ingest (``GpuDocumentApplier``, device="cpu").
 
-``ingest_array_batch`` records each boxcar and the next flush packs
-every recorded boxcar into op rows in one columnar pass (``_pack``). The
-port is held against the JAX package's ``TpuDocumentApplier``, which
-packs each boxcar as it is ingested, fed the same calls, and against the
-scalar merge-tree oracle: the two lanes interleaved on one doc within a
-flush, reads of docs whose boxcars are only recorded, escalation of a
-doc with recorded boxcars, the async farm, a checkpoint taken with
-boxcars recorded, and the packed rows byte for byte against a pack of
-each boxcar on its own.
+``ingest_array_batch`` records each boxcar by reference and the next
+flush does every recorded boxcar's bookkeeping (coverage, clients, text
+arena, property ids) and packs its op rows in one columnar pass
+(``_pack``). The port is held against the JAX package's
+``TpuDocumentApplier``, which does all of that as each boxcar is
+ingested, fed the same calls, against the port's own dict lane fed the
+same stream, and against the scalar merge-tree oracle: the two lanes
+interleaved on one doc within a flush, reads of docs whose boxcars are
+only recorded, escalation of a doc with recorded boxcars, the async farm,
+a checkpoint taken and one loaded with boxcars recorded, and the packed
+rows byte for byte against each boxcar's bookkeeping and pack made on
+its own at its arrival.
 """
 
+import copy
 import threading
 from dataclasses import replace
 
@@ -19,6 +23,9 @@ import pytest
 import tests.torch_stack_fixtures  # noqa: F401  (one torch thread)
 
 from fluidframework_tpu.service.tpu_applier import TpuDocumentApplier
+from fluidframework_tpu.service.tpu_applier import (
+    load_applier_checkpoint as jax_load_applier_checkpoint,
+)
 from fluidframework_tpu_torch.mergetree.client import MergeTreeClient
 from fluidframework_tpu_torch.ops.apply import (
     F_CLIENT,
@@ -32,9 +39,11 @@ from fluidframework_tpu_torch.ops.apply import (
     F_TSTART,
     F_TYPE,
     F_VAL,
+    NO_VAL,
     OP_FIELDS,
+    OP_INSERT,
 )
-from fluidframework_tpu_torch.ops.doc_state import FIELDS
+from fluidframework_tpu_torch.ops.doc_state import FIELDS, PropTable
 from fluidframework_tpu_torch.ops.opgen import generate_doc_ops
 from fluidframework_tpu_torch.service.array_batch import (
     ArrayBoxcar,
@@ -170,27 +179,51 @@ def _rows(chunks) -> np.ndarray:
                                                           np.int32)
 
 
-def _pack_each(entries: list) -> list:
-    """The loop reference: each recorded boxcar packed on its own, as the
-    farm staged it at ingest before the columnar pass."""
-    chunks = []
-    for n, batch, box, client, arena_start, ann in entries:
-        chunk = np.zeros((n, OP_FIELDS), np.int32)
-        chunk[:, F_TYPE] = np.asarray(box.kind).astype(np.int32) + 1
-        chunk[:, F_POS] = box.a
-        chunk[:, F_END] = box.b
-        chunk[:, F_SEQ] = batch.base_seq + np.arange(n, dtype=np.int64)
-        chunk[:, F_REFSEQ] = box.rseq
-        chunk[:, F_CLIENT] = client
-        chunk[:, F_MSN] = batch.msns
-        text_off = np.asarray(box.text_off)
-        chunk[:, F_TLEN] = np.diff(text_off)
-        chunk[:, F_TSTART] = arena_start + text_off[:-1]
-        for i, key, val in ann:
-            chunk[i, F_KEY] = key
-            chunk[i, F_VAL] = val
-        chunks.append(chunk)
-    return chunks
+def _pack_each(app, pending: dict, arrivals: list) -> dict:
+    """The loop reference: each recorded boxcar's bookkeeping and rows
+    made on its own at its arrival, on copies of the farm's client
+    tables, arena lengths and property table: clients and text a doc,
+    property ids in global arrival order. A boxcar with an annotate of
+    other than one key gets the dict lane's rows (one a key, no text
+    start off an insert). Returns {slot: rows}."""
+    tables = copy.deepcopy(app._client_ids)
+    lengths = {slot: len(app.arenas[slot].text()) for slot in pending}
+    props = PropTable.load(app.prop_table.snapshot())
+    boxcars = {slot: iter(group) for slot, group in pending.items()}
+    rows = {slot: [] for slot in pending}
+    for slot in arrivals:
+        batch = next(boxcars[slot])
+        box = batch.boxcar
+        table = tables.setdefault(slot, {})
+        client = table.setdefault(box.client_id, len(table))
+        start = lengths[slot]
+        lengths[slot] += len(box.text)
+        off = np.asarray(box.text_off)
+        per_op = any(box.kind[i] == 2 and len(box.props[i]) != 1
+                     for i in range(batch.n))
+        for i in range(batch.n):
+            kind = int(box.kind[i])
+            row = [0] * OP_FIELDS
+            row[F_TYPE] = kind + 1
+            row[F_POS] = int(box.a[i])
+            row[F_END] = int(box.b[i])
+            row[F_SEQ] = batch.base_seq + i
+            row[F_REFSEQ] = int(box.rseq[i])
+            row[F_CLIENT] = client
+            row[F_MSN] = int(batch.msns[i])
+            row[F_TLEN] = int(off[i + 1] - off[i])
+            if kind == 0 or not per_op:
+                row[F_TSTART] = start + int(off[i])
+            if kind != 2:
+                rows[slot].append(row)
+                continue
+            for k, v in box.props[i].items():
+                row = list(row)
+                row[F_KEY] = props.intern_key(k)
+                row[F_VAL] = NO_VAL if v is None else props.intern_val(v)
+                rows[slot].append(row)
+    return {slot: np.array(r, np.int32).reshape(-1, OP_FIELDS)
+            for slot, r in rows.items()}
 
 
 # ------------------------------------------------------------- the lanes
@@ -221,6 +254,7 @@ def test_packed_rows_equal_a_per_boxcar_pack(lanes):
     _feed((port, jax_app), calls)
     recorded = {slot: list(group) for slot, group in port._pending.items()}
     assert recorded
+    reference = _pack_each(port, recorded, list(port._arrivals))
     staged_before = {slot: _rows(c) for slot, c in port._staged.items()}
     port._pack()
     assert not port._pending
@@ -236,10 +270,8 @@ def test_packed_rows_equal_a_per_boxcar_pack(lanes):
             # the pass's rows for this slot follow what the slot staged
             # before it, and equal the loop reference
             before = staged_before.get(slot, _rows([]))
-            packed = chunks[-1]
-            assert packed.tobytes() == _rows(
-                _pack_each(recorded[slot])).tobytes()
-            assert len(before) + len(packed) == len(got)
+            assert got[:len(before)].tobytes() == before.tobytes()
+            assert got[len(before):].tobytes() == reference[slot].tobytes()
     assert port._staged_ops == jax_app._staged_ops == total
     for app in (port, jax_app):
         app.finalize()
@@ -403,6 +435,98 @@ def test_prop_table_overflow_escalates_a_doc_with_recorded_boxcars():
     assert port.get_properties_at("t", "hot", 2) == {"late": 1}
 
 
+def _unread_starts_zeroed(rows: np.ndarray) -> np.ndarray:
+    """Rows with a non-insert's text start zeroed: nothing reads it (a
+    wave packs it as 0, ``ops/apply.pack_wave_rows``); the array lane
+    leaves its boxcar's text offset there, the dict lane 0."""
+    rows = rows.copy()
+    rows[rows[:, F_TYPE] != OP_INSERT, F_TSTART] = 0
+    return rows
+
+
+@pytest.mark.parametrize("two_keys", [False, True])
+def test_array_lane_equals_dict_lane_and_jax(two_keys):
+    """One stream fed to three farms: the port's array lane (recorded,
+    then packed at the flush), the port's dict lane (the stream's
+    materialised pairs, staged at ingest) and the JAX farm's array lane
+    (packed at ingest). Docs interleave; client "z" appears mid-stream;
+    keys and values are first seen on one doc and then on another, so
+    only global arrival order gives the ids; (two_keys) doc A has a
+    two-key annotate between single-key ones; doc H went to the host
+    earlier and takes its boxcars there. After the pack the staged rows,
+    arenas, client tables, property table and coverage are the JAX
+    farm's byte for byte and the dict lane's (a non-insert's unread text
+    start aside), and every doc ends on the oracle's text and props."""
+    hot = [_box("h", 1, [("ins", 0, "xyz")]),
+           _box("h", 2, [("ann", 0, 1, {f"key{k}": k}) for k in range(5)]),
+           _box("h", 7, [("ann", 0, 1, {f"key{k}": k}) for k in range(5, 9)])]
+    middle = {"kc": 1, "kd": None} if two_keys else {"kc": 1}
+    calls = [
+        ("A", _box("a", 1, [("ins", 0, "hello")])),
+        ("B", _box("b", 1, [("ins", 0, "world"), ("rem", 1, 2)])),
+        ("B", _box("b", 3, [("ann", 0, 2, {"kb": "vb"})])),
+        ("H", _box("h", 11, [("ins", 1, "uv"), ("ann", 0, 2, {"late": 1})])),
+        ("A", _box("a", 2, [("ann", 1, 3, {"ka": "va"}), ("ins", 0, "x")])),
+        ("C", _box("c", 1, [("ins", 0, "abc"), ("ann", 0, 1, {"kb": 7})])),
+        ("A", _box("z", 4, [("ann", 0, 2, middle), ("rem", 3, 4)])),
+        ("C", _box("z", 3, [("ann", 1, 3, {"ke": [1, 2]})])),
+        ("A", _box("a", 6, [("ann", 0, 1, {"ka": 7}), ("ins", 2, "yy")])),
+        ("H", _box("h", 13, [("rem", 2, 3), ("ins", 0, "w")])),
+        ("B", _box("b", 4, [("ann", 0, 1, {"kf": "vb"}), ("ins", 4, "!")])),
+        ("C", _box("c", 4, [("ins", 1, "q"), ("ann", 0, 4, {"kg": "vg"})])),
+    ]
+    streams = {"H": hot + [b for doc, b in calls if doc == "H"]}
+    for doc, b in calls:
+        streams.setdefault(doc, []).append(b)
+    array_farm, jax_app = _farms(streams)
+    dict_farm = _farms(streams)[0]
+    feeds = ((array_farm, "array"), (dict_farm, "dict"), (jax_app, "array"))
+    for app, lane in feeds:
+        _feed((app,), [(lane, "H", b) for b in hot])
+        app.finalize()
+        assert app.host_escalations == 1
+    for app, lane in feeds:
+        _feed((app,), [(lane, doc, b) for doc, b in calls])
+    host = array_farm.slot_of("t", "H")
+    assert host in array_farm._host_docs and host not in array_farm._pending
+    assert len(array_farm._arrivals) == len(calls) - 2
+
+    def same_coverage(other):
+        for doc in streams:
+            for read in ("applied_seq", "first_seq"):
+                assert getattr(array_farm, read)("t", doc) == \
+                    getattr(other, read)("t", doc), (doc, read)
+
+    # docs A, B and C have nothing but recorded boxcars yet
+    same_coverage(jax_app)
+    array_farm._pack()
+    assert not array_farm._pending and not array_farm._arrivals
+    for other in (dict_farm, jax_app):
+        assert set(array_farm._staged) == set(other._staged)
+        for slot, chunks in array_farm._staged.items():
+            got, want = _rows(chunks), _rows(other._staged[slot])
+            if other is dict_farm:
+                got, want = _unread_starts_zeroed(got), \
+                    _unread_starts_zeroed(want)
+            assert got.tobytes() == want.tobytes(), slot
+        assert [a.text() for a in array_farm.arenas] == \
+            [a.text() for a in other.arenas]
+        assert array_farm._client_ids == other._client_ids
+        assert array_farm.prop_table.snapshot() == \
+            other.prop_table.snapshot()
+        same_coverage(other)
+    # "z" arrived after "a" on doc A; the keys in their first arrival
+    assert array_farm._client_ids[array_farm.slot_of("t", "A")] == {
+        "a": 0, "z": 1}
+    keys = array_farm.prop_table.snapshot()["keys"]
+    assert keys[keys.index("kb"):] == (
+        ["kb", "ka", "kc"] + ["kd"] * two_keys + ["ke", "kf", "kg"])
+    for app in (array_farm, dict_farm, jax_app):
+        app.finalize()
+    _assert_same(array_farm, jax_app, streams)
+    _assert_same(dict_farm, jax_app, streams)
+
+
 # ----------------------------------------------------------- async farm
 
 
@@ -476,7 +600,9 @@ def test_async_farm_packs_at_flush_and_finalize(min_wave):
 def test_checkpoint_with_boxcars_recorded(tmp_path, async_dispatch):
     """``save_applier_checkpoint`` with boxcars recorded saves them
     applied (its ``finalize`` packs them); the loaded farm takes the rest
-    of the stream and ends as a JAX farm fed it all."""
+    of the stream and ends as a JAX farm fed it all. With the loaded
+    farm's first boxcars only recorded, its coverage and restart window
+    read as those of the JAX farm loaded from the same files."""
     streams = _streams(SEEDS[0])
     port, jax_app = _farms(streams, async_dispatch=async_dispatch)
     # a dict-lane boxcar opens each doc; the ones before the cut are
@@ -493,9 +619,21 @@ def test_checkpoint_with_boxcars_recorded(tmp_path, async_dispatch):
         port.close()
     log = _log(streams)
     loaded = load_applier_checkpoint(str(tmp_path / "farm"), device="cpu")
-    loaded.set_replay_source(lambda t, d: log[d])
-    _feed((loaded, jax_app), calls[half:])
-    for app in (loaded, jax_app):
+    jax_loaded = jax_load_applier_checkpoint(str(tmp_path / "farm"),
+                                             kernel="xla")
+    for app in (loaded, jax_loaded):
+        app.set_replay_source(lambda t, d: log[d])
+    cut = half + N_DOCS + 1
+    _feed((loaded, jax_app, jax_loaded), calls[half:cut])
+    assert loaded._pending
+    for doc in streams:
+        for read in ("applied_seq", "first_seq", "restore_gap"):
+            assert getattr(loaded, read)("t", doc) == \
+                getattr(jax_loaded, read)("t", doc), (doc, read)
+    assert any(loaded.restore_gap("t", doc)[1] is not None
+               for doc in streams)
+    _feed((loaded, jax_app, jax_loaded), calls[cut:])
+    for app in (loaded, jax_app, jax_loaded):
         app.finalize()
     _assert_same(loaded, jax_app, streams, counters=False)
 

@@ -297,6 +297,52 @@ def test_sync_and_async_lanes_repack_alike():
         app.close()
 
 
+@pytest.mark.parametrize("async_dispatch", [False, True])
+def test_a_repack_with_boxcars_recorded(async_dispatch):
+    """Docs repacked while each has a boxcar recorded and not packed: on
+    the async lane ``close`` repacks what the worker handed over (the
+    caller's thread, the worker gone); on the sync lane the repack is
+    called as a wave's check calls it. A recorded boxcar has no arena
+    start yet, so the next pack appends it to the rebuilt arena: the farm
+    ends as one that packed it before the repack, state and arenas, and
+    takes the rest of the stream to the reference's text."""
+    streams = _long_streams()
+    half = 30
+    farms = {}
+    for order in ("pack_first", "repack_first"):
+        app = _farm(streams, async_dispatch=async_dispatch)
+        _feed(app, streams, "array", hi=half)
+        for doc, batches in streams.items():
+            app.ingest_array_batch("t", doc, batches[half])
+        slots = np.array(sorted(app._pending), np.int64)
+        assert len(slots) == len(streams)
+        if order == "pack_first":
+            app._pack()
+        repacks = int(app.doc_repacks.sum())
+        if async_dispatch:
+            with app._lock:
+                app._repack_slots |= set(slots.tolist())
+            app.close()
+        else:
+            with app._on_streams():
+                app._bound[slots] = app._repack(slots, {})
+        assert int(app.doc_repacks.sum()) == repacks + len(slots)
+        assert bool(app._pending) == (order == "repack_first")
+        app.flush()
+        farms[order] = app
+    first, later = farms["pack_first"], farms["repack_first"]
+    for f in FIELDS:
+        assert np.array_equal(getattr(first.state, f).numpy(),
+                              getattr(later.state, f).numpy()), f
+    assert [a.text() for a in first.arenas] == \
+        [a.text() for a in later.arenas]
+    for app in (first, later):
+        _feed(app, streams, "array", lo=half + 1)
+        assert _differing(app, streams) == []
+        assert app.host_escalations == 0
+        app.close()
+
+
 def test_a_lagging_client_still_escalates():
     """A client that joined and never sent holds every doc's msn at its
     join: nothing settles, a repack cannot shrink the doc, the kernel's

@@ -253,8 +253,11 @@ def test_a_traced_server_and_farm(recorder):
     # intervals of the farm's own timers
     counters = snap["counters"]
     assert set(counters) == {"applier.wave.rows", "applier.wave.slots",
+                             "applier.ingest.deferred",
                              "applier.ingest.packed_rows",
                              "deli.array.fast"}
+    # every boxcar was recorded by reference for the flush's pack
+    assert counters["applier.ingest.deferred"] == boxcars
     # every boxcar was ticketed on deli's array fast lane
     assert counters["deli.array.fast"] == boxcars == sum(
         o.deli.boxcars_fast for o in svc.server._orderers.values())
@@ -325,7 +328,9 @@ def _reader(name: str):
 def test_the_pack_span_and_ingest_counters(recorder, mixed):
     """``applier.pack`` and the ingest counters are recorded only while
     tracing; ``packed_share`` reads 100 on a flood stream and below 100
-    once a boxcar takes the dict lane."""
+    once a boxcar takes the dict lane. Every array boxcar, the two-key
+    one included, is recorded by reference (``applier.ingest.deferred``)
+    and leaves the record at the flush."""
     svc = Service()
     conn, editor = svc.sessions[0]
 
@@ -354,9 +359,10 @@ def test_the_pack_span_and_ingest_counters(recorder, mixed):
     snap = recorder.snapshot()
     counters = snap["counters"]
     rows = svc.app.ops_applied - applied
-    # one pass: at the flush, or (mixed) before the dict-lane chunk of a
-    # doc with boxcars recorded, which leaves the flush nothing to pack
+    # one pass, at the flush; the two-key boxcar takes the dict lane
+    # there, at its place in its doc's order
     assert _calls(snap, "applier.pack") == 1
+    assert counters["applier.ingest.deferred"] == boxcars + mixed
     assert counters["applier.ingest.packed_rows"] + counters.get(
         "applier.ingest.direct_rows", 0) == rows
     assert counters["applier.ingest.packed_rows"] == BOXCAR * boxcars
